@@ -9,12 +9,21 @@ Phases, each printing one JSON line and raising on any mismatch:
               build of every kernel from src/repro_torch/kernels/csrc/;
   crc32       the CRC-32 kernel against its plain PyTorch version and host
               zlib, exactly, with kernel / plain / zlib times;
+  flash_attention  the flash-attention kernel against its plain PyTorch
+              version at the serve path's and olmo_1b's shapes, with kernel /
+              plain / SDPA times and the bound;
   kv_pages    the KV page store at olmo_1b decode-cache widths: snapshot,
               restore, a torn snapshot, failover — every restore bit-exact;
   checkpoint  the checkpoint manager on an olmo_1b-width bf16 state: save,
               restore, writer crash, torn manifest, server crash recovery;
-  kernels     one JSON line per ported kernel: launches on the main path,
-              agreement with the plain version, time beside its bound.
+  serve       olmo_1b at its full config (random weights from a seed): 4
+              requests x 256 prompt tokens, 16 greedy tokens with decode-cache
+              snapshots in the page store, clean and preempted at token 10 —
+              the tokens must be equal; first the model on the card against
+              the CPU on a small f32 config;
+  kernels     one JSON line with an entry per ported kernel: launches on
+              the main paths, agreement with the plain version, time beside
+              its bound, the plain version's and the library call's.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits non-zero before printing any result.
 """
@@ -31,16 +40,32 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and float32 operations/s
-#: outside the tensor cores — the rate the CRC's integer steps are held to
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 operations/s
+#: outside the tensor cores — the rate the CRC's integer steps and float32
+#: attention are held to — and dense bf16 tensor-core operations/s
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 #: integer operations per CRC byte step: xor, and, table load, shift, xor
 CRC_OPS_PER_BYTE = 5
+#: widest CRC batch (32-bit words a row) the kernels line holds against the
+#: plain version: a (642, 16401) KV restore batch takes it ~4 s on the card
+PLAIN_CRC_WORDS = 1 << 17
 
 #: olmo_1b widths (src/repro/configs/olmo_1b.py)
 OLMO_1B = dict(d_model=2048, n_kv_heads=16, head_dim=128, d_ff=8192,
                vocab=50304, n_layers=16)
+
+#: flash-attention shapes: (BH, S, hd), dtype, causal.  The first is the
+#: serve phase's prefill (4 requests x 16 heads, 256 tokens); (32, 2048, 128)
+#: is olmo_1b's full context
+FLASH_SHAPES = [((64, 256, 128), "bfloat16", True),
+                ((64, 512, 128), "bfloat16", True),
+                ((32, 2048, 128), "bfloat16", True),
+                ((3, 192, 32), "float32", True),
+                ((2, 128, 64), "float32", False)]
+#: max |kernel - plain| allowed, by dtype (the reference's tolerances)
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -64,6 +89,31 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def traced_device_ms(prof) -> float:
+    """Summed device time (ms) of every kernel and copy in a profiler trace."""
+    import torch
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def profiled_ms(fn, reps: int) -> float:
+    """Device time of one ``fn`` call, from a ``torch.profiler`` trace of
+    ``reps`` calls after one warm-up: the work of the kernels it launches,
+    without the host's cost of launching them (which ``cuda_ms`` counts
+    whenever the host is slower than the card)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = traced_device_ms(prof)
+    check(ms > 0, "the profiler's trace holds no device time")
+    return ms / reps
 
 
 def wall_ms(fn, dev) -> tuple:
@@ -94,6 +144,20 @@ def crc_bound_ms(n: int, w: int) -> tuple:
     CUDA-core rate.  Returns (ms, "bytes" | "operations")."""
     t_bytes = (n * w * 4 + n * 4) / HBM_BYTES_PER_S
     t_ops = n * w * 4 * CRC_OPS_PER_BYTE / CUDA_CORE_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_bound_ms(bh: int, s: int, hd: int, dtype: str, causal: bool) -> tuple:
+    """The least time the card could take for one flash-attention call: q,
+    k, v read once and o written once over HBM, against 4*BH*S^2*hd
+    operations (half when causal) over the tensor cores' bf16 rate or the
+    CUDA cores' float32 rate.  Returns (ms, "bytes" | "operations")."""
+    elt = 2 if dtype == "bfloat16" else 4
+    t_bytes = 4 * bh * s * hd * elt / HBM_BYTES_PER_S
+    ops = 4 * bh * s * s * hd / (2 if causal else 1)
+    t_ops = ops / (BF16_TENSOR_OPS_PER_S if dtype == "bfloat16"
+                   else CUDA_CORE_OPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -149,6 +213,51 @@ def phase_crc32(dev) -> None:
     emit("crc32", shape=[n, w], ms=ms, plain_ms=None, zlib_ms=zlib_ms,
          bound_ms=crc_bound_ms(n, w)[0], exact=True,
          byte_step_ns=ms * 1e6 / (4 * w))
+
+
+def flash_case(shape, dtype: str, causal: bool, seed: int, dev) -> dict:
+    """The flash kernel through its wrapper (``ops.flash_attention``; on the
+    CPU, the plain version) against ``ref.attention_ref`` on the same random
+    (BH, S, hd) inputs; on the card also the device time of the kernel, the
+    plain version and SDPA, and the time of a wrapper call as a caller sees
+    it (``call_ms``, host launch cost included).  Raises when the error
+    exceeds the dtype's tolerance."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g, dtype=getattr(torch, dtype),
+                           device=dev) for _ in range(3))
+    # (BH, S, hd) passed as (1, S, BH, hd): the wrapper's fold is then a view
+    as_bshd = lambda t: t[None].transpose(1, 2)
+    kernel = lambda: ops.flash_attention(as_bshd(q), as_bshd(k), as_bshd(v),
+                                         causal=causal)
+    got = kernel().transpose(1, 2)[0]
+    plain = ref.attention_ref(q, k, v, causal=causal)
+    err = float((got.float() - plain.float()).abs().max().item())
+    check(got.shape == q.shape and got.dtype == q.dtype,
+          f"flash output {tuple(got.shape)} {got.dtype} at {shape}")
+    check(err <= FLASH_TOL[dtype],
+          f"flash kernel != plain at {shape} {dtype} causal={causal}: {err}")
+    bound, by = flash_bound_ms(*shape, dtype, causal)
+    out = {"shape": list(shape), "dtype": dtype, "causal": causal,
+           "max_abs_err": err, "tol": FLASH_TOL[dtype],
+           "bound_ms": bound, "bound_by": by,
+           "ms": None, "plain_ms": None, "library_ms": None, "call_ms": None}
+    if dev.type == "cuda":
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=causal)
+        out.update(ms=profiled_ms(kernel, 20),
+                   plain_ms=profiled_ms(lambda: ref.attention_ref(q, k, v, causal=causal), 3),
+                   library_ms=profiled_ms(sdpa, 20),
+                   call_ms=cuda_ms(kernel, 20))
+    return out
+
+
+def run_flash_attention(dev, shapes=FLASH_SHAPES) -> list:
+    """One ``flash_case`` per shape; launches here are not the main path's."""
+    return [flash_case(shape, dtype, causal, seed=i, dev=dev)
+            for i, (shape, dtype, causal) in enumerate(shapes)]
 
 
 def make_kv_cache(shape, seed: int, dev):
@@ -336,9 +445,189 @@ def run_checkpoint(dev, *, d: int = OLMO_1B["d_model"],
     return out
 
 
+def timed(fn, sink: list, dev):
+    """``fn`` with the host time of each call, ending in a synchronise,
+    appended to ``sink``."""
+    def run(*args, **kwargs):
+        ms, out = wall_ms(lambda: fn(*args, **kwargs), dev)
+        sink.append(ms)
+        return out
+    return run
+
+
+def busy_share(fn, dev) -> dict:
+    """Host time of one ``fn`` call under ``torch.profiler``, and the share
+    of it in which the card ran work: the device time of every kernel and
+    copy in the trace over the host time (the profiler's own cost included).
+    The share is None off the card, or when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if dev.type != "cuda":
+        return {"host_ms": wall_ms(fn, dev)[0], "device_ms": None, "busy_share": None}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ms, _ = wall_ms(fn, dev)
+    device_ms = traced_device_ms(prof)
+    return {"host_ms": ms, "device_ms": device_ms,
+            "busy_share": device_ms / ms if device_ms else None}
+
+
+def run_model_check(dev, *, arch: str = "olmo_1b", batch: int = 2,
+                    prompt_len: int = 64, steps: int = 4) -> dict:
+    """The model on ``dev`` against the CPU's plain path on the same weights
+    (``arch``'s scaled-down config in float32, weights drawn on the CPU):
+    prefill logits, every cache leaf and ``steps`` decode steps' logits
+    within 3e-5, the tolerance the CPU tests hold the port to against the
+    JAX package."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch
+    from repro_torch.models import get_model
+    from repro_torch.tree import flatten_with_path, map_leaves
+
+    cfg = dataclasses.replace(get_config(arch).scaled_down(), dtype="float32")
+    cpu = torch.device("cpu")
+    params = get_model(cfg, cpu).init(0)
+    prompts = make_batch(cfg, ShapeConfig("check", prompt_len, batch, "prefill"))
+    worst = 0.0
+
+    def close(a, b, what):
+        nonlocal worst
+        a, b = a.to(cpu), b.to(cpu)
+        err = float((a.float() - b.float()).abs().max().item()) if a.numel() else 0.0
+        worst = max(worst, err)
+        check(a.shape == b.shape and bool(torch.allclose(a.float(), b.float(),
+                                                         rtol=3e-5, atol=3e-5)),
+              f"model on {dev} != CPU at {what}: max abs err {err}")
+
+    with torch.inference_mode():
+        runs = []
+        for d in (dev, cpu):
+            model = get_model(cfg, d)
+            p = map_leaves(lambda t: t.to(d), params)
+            logits, cache = model.prefill(p, prompts)
+            outs = [(logits, cache)]
+            for _ in range(steps):
+                token = torch.argmax(outs[0][0], dim=-1).to(torch.int32)
+                logits, cache = model.decode_step(p, cache, token)
+                outs.append((logits, cache))
+            runs.append(outs)
+    for i, ((la, ca), (lb, cb)) in enumerate(zip(*runs)):
+        close(la, lb, f"step {i} logits")
+        for (path, a), (_q, b) in zip(flatten_with_path(ca), flatten_with_path(cb)):
+            close(a, b, f"step {i} cache {path}")
+    return {"config": f"{arch} scaled_down float32", "batch": batch,
+            "prompt_len": prompt_len, "decode_steps": steps,
+            "max_abs_err": worst, "tol": 3e-5}
+
+
+def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
+              tokens: int = 16, snapshot_every: int = 8, crash_at: int = 10,
+              seed: int = 0) -> dict:
+    """The serving engine at ``cfg`` (default: olmo_1b at its full config):
+    a clean run, then a run preempted after ``crash_at`` decode steps that
+    restores its cache from the page store; each engine has its own page
+    store.  The tokens must be equal, and on the card the prefill must have
+    launched the flash kernel and the restore the CRC kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import page_store_for
+    from repro_torch.models import get_model
+    from repro_torch.serving import ServeEngine
+    from repro_torch.tree import flatten_with_path
+
+    cfg = cfg or get_config("olmo_1b")
+    model = get_model(cfg, dev)
+    params = model.init(seed)
+    n_params = sum(t.numel() for _p, t in flatten_with_path(params))
+    prompts = {k: torch.as_tensor(v, device=dev) for k, v in make_batch(
+        cfg, ShapeConfig("serve", prompt_len, batch, "prefill")).items()}
+    # warm-up outside the timed runs (library handles, kernel loads), then
+    # one profiled prefill and decode step; the runs' prefill computes the
+    # same logits from the same inputs
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, prompts)
+        check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+        token = torch.argmax(logits, -1).to(torch.int32)
+        model.decode_step(params, cache, token)
+        busy = {"prefill": busy_share(lambda: model.prefill(params, prompts), dev),
+                "decode_step": busy_share(
+                    lambda: model.decode_step(params, cache, token), dev)}
+        leaf_bytes = max(t.numel() * t.element_size()
+                         for _p, t in flatten_with_path(cache))
+        del logits, cache
+
+    names = ("prefill_ms", "decode_ms", "snapshot_ms", "restore_ms")
+    times = {run: {n: [] for n in names} for run in ("clean", "preempted")}
+
+    def engine(sinks):
+        eng = ServeEngine(model, params, snapshot_every=snapshot_every, device=dev,
+                          page_store=page_store_for(cfg, batch, prompt_len, tokens,
+                                                    snapshot_every, dev))
+        eng._prefill = timed(eng._prefill, sinks["prefill_ms"], dev)
+        eng._decode = timed(eng._decode, sinks["decode_ms"], dev)
+        eng.pages.snapshot_cache = timed(eng.pages.snapshot_cache,
+                                         sinks["snapshot_ms"], dev)
+        eng.pages.restore_cache = timed(eng.pages.restore_cache,
+                                        sinks["restore_ms"], dev)
+        return eng
+
+    ops.reset_counts()  # the main path starts here
+    clean = engine(times["clean"]).generate(prompts, tokens, seq_id=0)
+    preempted = engine(times["preempted"]).generate(prompts, tokens, seq_id=0,
+                                                    crash_at=crash_at)
+    flash, crc = ops.COUNTS["flash_attention"], ops.COUNTS["crc32_batch"]
+    check(clean.shape == (batch, tokens), f"clean tokens {clean.shape}")
+    check(bool(((clean >= 0) & (clean < cfg.vocab_size)).all()),
+          "a token outside the vocabulary")
+    check(np.array_equal(clean, preempted), "preempted tokens != clean tokens")
+    check(len(times["preempted"]["restore_ms"]) == 1, "no restore ran")
+    check(dev.type == "cpu" or flash.launches > 0, "serve launched no flash kernel")
+    check(dev.type == "cpu" or crc.launches > 0, "restore launched no CRC kernel")
+    mean = lambda xs: sum(xs) / len(xs)
+    out = {"config": cfg.name, "params": n_params, "dtype": cfg.dtype,
+           "batch": batch, "prompt_len": prompt_len, "tokens": tokens,
+           "snapshot_every": snapshot_every, "crash_at": crash_at,
+           "largest_cache_leaf_bytes": leaf_bytes, "tokens_equal": True,
+           "first_tokens": clean[0].tolist(), "profiled": busy}
+    for run, t in times.items():
+        out[run] = {"prefill_ms": t["prefill_ms"][0],
+                    "decode_ms_per_token": mean(t["decode_ms"]),
+                    "decode_steps": len(t["decode_ms"]),
+                    "snapshot_ms": mean(t["snapshot_ms"]),
+                    "snapshots": len(t["snapshot_ms"]),
+                    "restore_ms": t["restore_ms"][0] if t["restore_ms"] else None}
+    for name, count in (("flash_attention", flash), ("crc32_batch", crc)):
+        out[name] = {"launches": count.launches,
+                     "shapes": {str(k): v for k, v in count.shapes.items()}}
+    return out
+
+
+def flash_entry(dev, launches: int, shapes: dict, dtype: str) -> dict:
+    """The flash kernel at the main path's most frequent shape (the serve
+    prefill's), beside its plain version, SDPA and its bound."""
+    shape = max(shapes, key=shapes.get)
+    case = flash_case(shape, dtype, True, seed=7, dev=dev)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:70",
+            "launches": launches, "matches_plain": True,
+            "max_abs_err": case["max_abs_err"], "shape": list(shape),
+            "dtype": dtype, "ms": case["ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+            "library_ms": case["library_ms"], "call_ms": case["call_ms"]}
+
+
 def phase_kernels(dev, launches: int, shapes: dict) -> dict:
     """Time the CRC kernel at the main path's batch with the most rows (a KV
-    restore's per-shard batch), beside its plain version and its bound."""
+    restore's per-shard batch), beside its plain version and its bound.
+    Batches of rows wider than ``PLAIN_CRC_WORDS`` are left out by the
+    caller: the plain version's per-byte loop would take minutes on them."""
     from repro_torch.kernels import ops, ref
     n, w = max(shapes, key=lambda s: (s[0], s[1]))
     data = random_words((n, w), seed=7, dev=dev)
@@ -359,7 +648,8 @@ def phase_kernels(dev, launches: int, shapes: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="device,crc32,kv_pages,checkpoint,kernels")
+    ap.add_argument("--phases", default="device,crc32,flash_attention,kv_pages,"
+                    "checkpoint,serve,kernels")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     import torch
@@ -369,21 +659,43 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
+    # float32 products in full float32 (the model check's tolerance)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import ops
     info = phase_device()
     if "crc32" in phases:
         phase_crc32(dev)
-    launches, shapes = 0, {}
-    for name, run in (("kv_pages", run_kv_pages), ("checkpoint", run_checkpoint)):
-        if name in phases:
-            res = run(dev)
-            emit(name, **res)
-            launches += res["launches"]
-            for k, v in ops.COUNTS["crc32_batch"].shapes.items():
-                shapes[k] = shapes.get(k, 0) + v
-    if "kernels" in phases and shapes:
-        print(json.dumps({"kernels": [phase_kernels(dev, launches, shapes)]}),
-              flush=True)
+    if "flash_attention" in phases:
+        for case in run_flash_attention(dev):
+            emit("flash_attention", **case)
+    # each main-path phase resets the counts where its path starts; these sum
+    # what every kernel launched on the main paths, and at which shapes
+    launches = {name: 0 for name in ops.COUNTS}
+    shapes = {name: {} for name in ops.COUNTS}
+    runs = [("kv_pages", run_kv_pages), ("checkpoint", run_checkpoint),
+            ("serve", run_serve)]
+    for name, run in runs:
+        if name not in phases:
+            continue
+        if name == "serve":
+            emit("model_check", **run_model_check(dev))
+        res = run(dev)
+        emit(name, **res)
+        for kname, count in ops.COUNTS.items():
+            launches[kname] += count.launches
+            for k, v in count.shapes.items():
+                shapes[kname][k] = shapes[kname].get(k, 0) + v
+    if "kernels" in phases:
+        entries = []
+        crc_shapes = {k: v for k, v in shapes["crc32_batch"].items()
+                      if k[1] <= PLAIN_CRC_WORDS}
+        if crc_shapes:
+            entries.append(phase_kernels(dev, launches["crc32_batch"], crc_shapes))
+        if shapes["flash_attention"]:
+            entries.append(flash_entry(dev, launches["flash_attention"],
+                                       shapes["flash_attention"], res["dtype"]))
+        print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),
         flush=True)

@@ -9,6 +9,13 @@ are copies of the reference's; the client-side CRC verify of every fetched
 object runs as one batch through the hand-written CUDA kernel in
 ``repro_torch.kernels``.
 
+Slice 2 adds the model that produces the served state: the dense
+transformer (``repro_torch.models``, olmo_1b and its kin) and the serving
+engine (``repro_torch.serving.ServeEngine``, ``repro_torch.launch.serve``):
+prefill, greedy decode, decode-cache snapshots in the page store, and
+recovery after a preemption.  Prefill attention runs a hand-written CUDA
+flash-attention kernel.
+
 Entry points take ``device`` and default to ``"cuda"``: without a card they
 raise ``RuntimeError``; ``device="cpu"`` runs the kernels' plain PyTorch
 versions.  Subpackages are imported lazily.
@@ -16,6 +23,8 @@ versions.  Subpackages are imported lazily.
 _LAZY = {
     "ErdaCheckpointManager": ("repro_torch.checkpoint", "ErdaCheckpointManager"),
     "ErdaKVPageStore": ("repro_torch.serving", "ErdaKVPageStore"),
+    "ServeEngine": ("repro_torch.serving", "ServeEngine"),
+    "get_model": ("repro_torch.models", "get_model"),
     "make_store": ("repro_torch.core", "make_store"),
     "resolve_device": ("repro_torch._device", "resolve_device"),
 }

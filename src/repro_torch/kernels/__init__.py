@@ -1,4 +1,5 @@
 # Hand-written Hopper kernels of the port, one per Pallas kernel of repro:
 #   crc32.py + csrc/crc32.cu — batch object/shard CRC verification (§4.2)
+#   flash_attention.py + csrc/flash_attention.cu — prefill self-attention
 # ops.py holds the public wrappers and launch counts; ref.py the plain
 # PyTorch versions; build.py compiles csrc/ with nvcc at first use.

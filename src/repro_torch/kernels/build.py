@@ -21,7 +21,7 @@ from typing import Dict, Iterable, Optional, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 #: kernel library name -> source file under csrc/
-SOURCES = {"crc32": "crc32.cu"}
+SOURCES = {"crc32": "crc32.cu", "flash_attention": "flash_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,68 @@
+"""Blocked same-length self-attention as a CUDA kernel for Hopper.
+
+The prefill attention of every layer of the served model
+(``models.transformer.block_fwd`` on a CUDA tensor).  Replaces
+``repro/kernels/flash_attention.py::flash_attention_pallas``; the kernel
+source, its bound and its design notes are in ``csrc/flash_attention.cu``.
+
+Layout: q, k, v and the output are (BH, S, hd), float32 or bfloat16, with
+hd in ``HEAD_DIMS``; ``ops.flash_attention`` folds (B, S, H, hd) into it.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+#: head dims the kernel is built for
+HEAD_DIMS = (32, 64, 128)
+#: torch dtype -> the kernel's dtype code
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: launches of the CUDA kernel (never the plain version)
+COUNT = build.LaunchCount()
+
+
+def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"expected q, k, v of one (BH, S, hd) shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors on the current stream; (BH, S, hd)
+    -> (BH, S, hd) in q's dtype."""
+    check_qkv(q, k, v)
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_attention_cuda needs q, k, v on one CUDA device")
+    if q.dtype not in DTYPE_CODES or q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes float32/bfloat16 and head_dim in "
+                         f"{HEAD_DIMS}, got {q.dtype} and {q.shape[-1]}")
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    bh, s, hd = q.shape
+    out = torch.empty_like(q)
+    if out.numel():
+        fn = build.load("flash_attention").flash_attention_fwd
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     bh, s, hd, DTYPE_CODES[q.dtype], int(causal),
+                     1.0 / math.sqrt(hd), stream)
+        if err != 0:
+            raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
+        COUNT.add((bh, s, hd))
+    return out

@@ -11,10 +11,11 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.kernels import build, crc32, ref
+from repro_torch.kernels import build, crc32, flash_attention as flash, ref
 
 #: wrapper name -> its kernel's launch count
-COUNTS: Dict[str, build.LaunchCount] = {"crc32_batch": crc32.COUNT}
+COUNTS: Dict[str, build.LaunchCount] = {"crc32_batch": crc32.COUNT,
+                                        "flash_attention": flash.COUNT}
 
 
 def reset_counts() -> None:
@@ -45,3 +46,22 @@ def crc32_bytes_batch(buffers, device="cuda") -> np.ndarray:
         arr[i, : len(b)] = np.frombuffer(b, np.uint8)
     words = torch.from_numpy(arr.view("<i4")).to(resolve_device(device))
     return crc32_batch(words).cpu().numpy().astype(np.uint32)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Same-length self-attention over (B, S, H, hd) with H == KV heads
+    (callers repeat KV for GQA) -> (B, S, H, hd), in q's dtype."""
+    if q.dim() != 4:
+        raise ValueError(f"expected (B, S, H, hd) tensors, got {tuple(q.shape)}")
+    b, s, h, hd = q.shape
+    fold = lambda t: t.movedim(2, 1).reshape(b * h, s, hd).contiguous()
+    flash.check_qkv(q.flatten(0, 1), k.flatten(0, 1), v.flatten(0, 1))
+    q, k, v = fold(q), fold(k), fold(v)
+    if q.device.type == "cpu":
+        o = ref.attention_ref(q, k, v, causal=causal)
+    elif q.device.type == "cuda":
+        o = flash.flash_attention_cuda(q, k, v, causal=causal)
+    else:
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return o.reshape(b, h, s, hd).movedim(1, 2)

@@ -2,6 +2,8 @@
 ``chip_smoke.py`` holds each kernel against on the card."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels.crc32 import check_words, make_table
@@ -21,3 +23,17 @@ def crc32_ref(data: torch.Tensor) -> torch.Tensor:
     for col in cols:
         crc = table[(crc ^ col) & 0xFF] ^ (crc >> 8)
     return crc ^ 0xFFFFFFFF
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True) -> torch.Tensor:
+    """Dense softmax attention in float32, cast back to q's dtype; masked
+    scores are -1e30.  q, k, v: (BH, S, hd)."""
+    s = q.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqh,bkh->bqk", q.float() * scale, k.float())
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~mask, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bqk,bkh->bqh", p, v.float()).to(q.dtype)

@@ -1,0 +1,131 @@
+"""Attention: GQA projections, chunked online-softmax attention, dense
+attention, and single-token decode against a KV cache — the port of
+``repro/models/layers/attention.py``.
+
+These are the plain versions, in float32 inside and cast back: what the CPU
+runs, and what the card runs outside prefill (decode attention, whose
+products stay ``torch.matmul``/``einsum`` as the reference left them to
+XLA).  On the card, prefill attention goes through the flash kernel instead
+(``models.transformer.block_fwd``).  The reference's sharding hints
+(``constrain_batch*``) are no-ops without a mesh and are dropped.  What
+only other families use comes with their slices: banded (sliding-window)
+attention, ring-buffer cache slots and decode windows (swa, local_global),
+cross-attention inputs (encdec), query offsets.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+from repro_torch.models.layers.basic import apply_rope, dense_init, dtype_of
+
+NEG_INF = -1e30
+
+
+def init_attention(cfg, gen: torch.Generator) -> Dict:
+    dt = dtype_of(cfg)
+    d = cfg.d_model
+    return {
+        "wq": dense_init(gen, (d, cfg.q_dim), dt),
+        "wk": dense_init(gen, (d, cfg.kv_dim), dt),
+        "wv": dense_init(gen, (d, cfg.kv_dim), dt),
+        "wo": dense_init(gen, (cfg.q_dim, d), dt),
+    }
+
+
+def qkv(params: Dict, x: torch.Tensor, cfg, positions=None):
+    """Project (+RoPE).  Returns q:(B,S,H,hd), k/v:(B,S,KV,hd)."""
+    B, S, _ = x.shape
+    q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = (x @ params["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ params["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    if positions is not None and cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """(B,S,H,hd) -> (B,S,KV,G,hd) for GQA: head h is in KV group h // G."""
+    B, S, H, hd = q.shape
+    return q.reshape(B, S, n_kv, H // n_kv, hd)
+
+
+# ----------------------------------------------------- chunked causal attention
+def chunked_attention(q, k, v, cfg, *, causal: bool = True) -> torch.Tensor:
+    """Online-softmax attention over KV chunks.  q:(B,Sq,H,hd), k/v:(B,Skv,KV,hd)."""
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
+    KV = k.shape[2]
+    ck = min(cfg.attn_chunk, Skv)
+    if Skv % ck:
+        ck = math.gcd(Skv, ck) or Skv
+    scale = 1.0 / math.sqrt(hd)
+    qg = _group(q, KV).float() * scale                        # (B,Sq,KV,G,hd)
+    q_pos = torch.arange(Sq, device=q.device)
+    G = H // KV
+    m = torch.full((B, Sq, KV, G), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Sq, KV, G), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Sq, KV, G, hd), dtype=torch.float32, device=q.device)
+    for j in range(Skv // ck):
+        kj = k[:, j * ck:(j + 1) * ck].float()
+        vj = v[:, j * ck:(j + 1) * ck].float()
+        kv_pos = j * ck + torch.arange(ck, device=q.device)
+        s = torch.einsum("bqkgh,bckh->bqkgc", qg, kj)
+        if causal:
+            mask = q_pos[:, None] >= kv_pos[None, :]           # (Sq, ck)
+            s = s.masked_fill(~mask[None, :, None, None, :], NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bqkgc,bckh->bqkgh", p, vj)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+# ------------------------------------------------------------------ full (enc)
+def full_attention(q, k, v, *, causal: bool) -> torch.Tensor:
+    """Small-sequence dense attention."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = _group(q, KV).float() / math.sqrt(hd)
+    s = torch.einsum("bqkgh,bckh->bqkgc", qg, k.float())
+    if causal:
+        mask = torch.ones((Sq, k.shape[1]), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask[None, :, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqkgc,bckh->bqkgh", p, v.float())
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+# --------------------------------------------------------------------- decode
+def decode_attention(q, k_cache, v_cache, kv_positions, pos):
+    """One-token attention against a cache.
+    q: (B,1,H,hd); caches: (B,C,KV,hd); kv_positions: (C,) absolute positions
+    (-1 = empty slot); pos: the current position (0-d tensor or int)."""
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    qg = _group(q, KV).float() / math.sqrt(hd)
+    s = torch.einsum("bqkgh,bckh->bqkgc", qg, k_cache.float())
+    valid = (kv_positions >= 0) & (kv_positions <= pos)
+    s = s.masked_fill(~valid[None, None, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqkgc,bckh->bqkgh", p, v_cache.float())
+    return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def cache_update(k_cache, v_cache, kv_positions, k_new, v_new, pos):
+    """Insert one token's k/v at `pos` (clipped into the cache).  Out of
+    place, like the reference: returns new tensors."""
+    C = k_cache.shape[1]
+    pos = torch.as_tensor(pos, device=k_cache.device)
+    slot = pos.clamp(0, C - 1).reshape(1).long()
+    k_cache = k_cache.index_copy(1, slot, k_new.to(k_cache.dtype))
+    v_cache = v_cache.index_copy(1, slot, v_new.to(v_cache.dtype))
+    kv_positions = kv_positions.index_copy(
+        0, slot, pos.reshape(1).to(kv_positions.dtype))
+    return k_cache, v_cache, kv_positions

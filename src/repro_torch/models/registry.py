@@ -1,0 +1,42 @@
+"""Model registry: the reference's functional interface for the families the
+port has (``repro/models/registry.py``).
+
+get_model(cfg, device) -> namespace with:
+  init(key=0)                          — parameters; key is a seed or a
+                                         ``torch.Generator`` on ``device``
+  prefill(params, batch)               — (last_logits, cache)
+  decode_step(params, cache, token)
+  init_cache(batch_size, seq_len)      — empty cache on ``device``
+Only the dense family is ported; the others raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import functools
+from types import SimpleNamespace
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+
+def get_model(cfg: ModelConfig, device="cuda") -> SimpleNamespace:
+    transformer.check_supported(cfg)
+    dev = resolve_device(device)
+
+    def init(key=0):
+        gen = key if isinstance(key, torch.Generator) \
+            else torch.Generator(device=dev).manual_seed(int(key))
+        if gen.device.type != dev.type:
+            raise ValueError(f"generator on {gen.device}, model on {dev}")
+        return transformer.init_lm(cfg, gen)
+
+    return SimpleNamespace(
+        cfg=cfg,
+        device=dev,
+        init=init,
+        prefill=functools.partial(transformer.prefill, cfg),
+        decode_step=functools.partial(transformer.decode_step, cfg),
+        init_cache=functools.partial(transformer.init_cache, cfg, device=dev),
+    )

@@ -1,8 +1,10 @@
-"""Serving layer of the port: the Erda-backed KV page store (imported
-lazily).  ``ServeEngine`` and serving at load come with later slices."""
+"""Serving layer of the port: the Erda-backed KV page store and the batched
+decode engine (imported lazily).  Serving at load comes with the DES."""
 _LAZY = {
     "ErdaKVPageStore": ("repro_torch.serving.kv_store", "ErdaKVPageStore"),
     "PAGE_SHARD_CONFIG": ("repro_torch.serving.kv_store", "PAGE_SHARD_CONFIG"),
+    "ServeEngine": ("repro_torch.serving.engine", "ServeEngine"),
+    "page_shard_config": ("repro_torch.serving.kv_store", "page_shard_config"),
 }
 
 __all__ = sorted(_LAZY)

@@ -14,6 +14,7 @@ reference's only within one process.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence
 
 import torch
@@ -21,13 +22,27 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint.serialization import leaf_from_bytes, leaf_to_bytes, to_tensor
 from repro_torch.core import ServerConfig, make_store
-from repro_torch.core.hashtable import splitmix64
+from repro_torch.core.hashtable import ENTRY_SIZE, splitmix64
 from repro_torch.tree import flatten_with_path, unflatten
 
 #: per-shard geometry for the default serving cluster
 PAGE_SHARD_CONFIG = ServerConfig(device_size=256 << 20, table_capacity=1 << 14,
                                  n_heads=4, region_size=16 << 20,
                                  segment_size=4 << 20)
+
+
+def page_shard_config(leaf_bytes: int, n_records: int) -> ServerConfig:
+    """Per-shard geometry for snapshots whose largest leaf holds
+    ``leaf_bytes``: a record never spans a segment, so a segment holds one
+    such leaf and its record header (a whole decode-cache leaf is one object:
+    96 MiB for olmo_1b at 4 x 384 tokens), and the NVM holds each head's
+    first region plus a region for each of ``n_records`` records, should
+    they all land on one head, beside the hash table."""
+    seg = -(-(leaf_bytes + (64 << 10)) // 4096) * 4096
+    table = PAGE_SHARD_CONFIG.table_capacity * ENTRY_SIZE
+    return dataclasses.replace(
+        PAGE_SHARD_CONFIG, region_size=seg, segment_size=seg,
+        device_size=table + (PAGE_SHARD_CONFIG.n_heads + n_records) * seg)
 
 
 def _page_key(seq_id: int, name: str, idx: int) -> int:

@@ -56,3 +56,40 @@ def test_fails_outside_the_repository(tmp_path):
                                if k != "PYTHONPATH"})
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_flash_attention_phase_on_cpu():
+    out = chip_smoke.run_flash_attention(
+        torch.device("cpu"), shapes=[((2, 40, 32), "float32", True),
+                                     ((2, 33, 64), "bfloat16", False)])
+    assert [c["max_abs_err"] for c in out] == [0.0, 0.0]  # plain vs plain
+    assert all(c["ms"] is None for c in out)  # no device times off the card
+
+
+def test_flash_bound_at_the_serve_shape_is_bytes():
+    ms, by = chip_smoke.flash_bound_ms(64, 256, 128, "bfloat16", True)
+    assert by == "bytes"
+    assert ms == pytest.approx(4 * 64 * 256 * 128 * 2 / 3.35e12 * 1e3)
+    ms, by = chip_smoke.flash_bound_ms(32, 2048, 128, "bfloat16", True)
+    assert by == "operations"
+    assert ms == pytest.approx(2 * 32 * 2048**2 * 128 / 989e12 * 1e3)
+
+
+def test_model_check_on_cpu():
+    out = chip_smoke.run_model_check(torch.device("cpu"), batch=1,
+                                     prompt_len=8, steps=2)
+    assert out["max_abs_err"] == 0.0
+
+
+def test_serve_phase_on_cpu():
+    from repro_torch.configs import get_config
+    out = chip_smoke.run_serve(torch.device("cpu"),
+                               cfg=get_config("olmo_1b").scaled_down(),
+                               batch=2, prompt_len=16, tokens=6,
+                               snapshot_every=2, crash_at=3)
+    assert out["tokens_equal"]
+    assert out["preempted"]["restore_ms"] is not None
+    assert out["clean"]["snapshots"] == out["preempted"]["snapshots"] == 3
+    assert out["flash_attention"]["launches"] == 0  # the CPU runs the plain version
+    # {pos, k, kv_pos, v}: the k / v leaves are (L, B, S + 128, KV, hd) bf16
+    assert out["largest_cache_leaf_bytes"] == 4 * 2 * (16 + 128) * 4 * 32 * 2

@@ -1,17 +1,24 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and the model's
+prefill through the flash kernel against the CPU's plain path, on the card.
 JAX-free, so it runs on a machine that has only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each test skips where there is no CUDA device."""
+import dataclasses
 import zlib
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import ServerConfig, layout, make_store
+from repro_torch.data import make_batch
 from repro_torch.kernels import ops, ref
+from repro_torch.models import get_model
+from repro_torch.tree import map_leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -58,3 +65,39 @@ def test_store_round_trip_on_card(cuda_device):
     before = ops.COUNTS["crc32_batch"].launches
     assert s.multi_read(list(range(1, 40))) == [bytes([k]) * k for k in range(1, 40)]
     assert ops.COUNTS["crc32_batch"].launches > before
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)])
+@pytest.mark.parametrize("s", [1, 100, 192, 512])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_flash_kernel_matches_plain(cuda_device, hd, s, dtype, tol, causal):
+    rng = np.random.default_rng(hd * 1000 + s)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, s, 3, hd)).astype(np.float32))
+               .to(cuda_device, dtype) for _ in range(3))
+    before = ops.COUNTS["flash_attention"].launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.COUNTS["flash_attention"].launches == before + 1
+    torch.cuda.synchronize()
+    fold = lambda t: t.movedim(2, 1).reshape(6, s, hd)
+    want = ref.attention_ref(fold(q), fold(k), fold(v), causal=causal)
+    assert got.dtype == dtype and got.is_cuda
+    err = (fold(got).float() - want.float()).abs().max().item()
+    assert err <= tol, err
+
+
+def test_model_prefill_on_card_matches_cpu(cuda_device):
+    """olmo_1b scaled down, float32: prefill on the card launches the flash
+    kernel once a layer and matches the CPU's plain path within 3e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("olmo_1b").scaled_down(), dtype="float32")
+    params = get_model(cfg, "cpu").init(0)
+    batch = make_batch(cfg, ShapeConfig("t", 40, 2, "prefill"))
+    with torch.inference_mode():
+        want, _ = get_model(cfg, "cpu").prefill(params, batch)
+        before = ops.COUNTS["flash_attention"].launches
+        got, cache = get_model(cfg, cuda_device).prefill(
+            map_leaves(lambda t: t.to(cuda_device), params), batch)
+    assert ops.COUNTS["flash_attention"].launches == before + cfg.n_layers
+    assert cache["full"]["k"].is_cuda
+    torch.testing.assert_close(got.cpu(), want, rtol=3e-5, atol=3e-5)

@@ -23,7 +23,10 @@ VERBATIM = ["nvmsim/device.py", "core/hashtable.py", "core/log.py",
             "core/server.py", "core/recovery.py", "core/cleaning.py",
             "core/replication.py", "core/resharding.py",
             "core/baselines/redo_logging.py",
-            "core/baselines/read_after_write.py"]
+            "core/baselines/read_after_write.py",
+            *sorted(str(p.relative_to(SRC / "repro"))
+                    for d in ("configs", "data")
+                    for p in (SRC / "repro" / d).glob("*.py"))]
 #: copies the port changes, with the functions it changes; every other
 #: top-level function and method must stay the reference's
 CHANGED = {
@@ -52,7 +55,11 @@ def test_every_port_module_imports_without_jax_or_repro():
 import importlib, sys
 for name in {port_modules()!r}:
     importlib.import_module(name)
+from repro_torch.configs import get_config
 from repro_torch.core import ServerConfig, make_store
+from repro_torch.launch.serve import serve
+assert serve(batch=1, prompt_len=8, tokens=3, snapshot_every=1, crash_at=1,
+             device="cpu").shape == (1, 3)
 s = make_store("erda-cluster", n_shards=2, replication=2, device="cpu",
                cfg=ServerConfig(device_size=4 << 20, table_capacity=1 << 9,
                                 n_heads=2, region_size=256 << 10,
@@ -135,10 +142,17 @@ def test_default_device_entry_points_raise_without_cuda():
                                         leaf_from_bytes, leaf_to_bytes,
                                         tree_from_numpy)
     from repro_torch.core import ErdaStore, ServerConfig, make_store
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.serving import ErdaKVPageStore
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.serving import ErdaKVPageStore, ServeEngine
     cfg = ServerConfig(device_size=2 << 20, table_capacity=1 << 8, n_heads=1,
                        region_size=256 << 10, segment_size=32 << 10)
+    olmo = get_config("olmo_1b").scaled_down()
+    cpu_model = get_model(olmo, "cpu")
+    cpu_params = cpu_model.init(0)
     calls = [lambda: ErdaStore(cfg),
              lambda: make_store("erda", cfg=cfg),
              lambda: make_store("erda-cluster", n_shards=1, cfg=cfg),
@@ -146,7 +160,12 @@ def test_default_device_entry_points_raise_without_cuda():
              lambda: ErdaCheckpointManager(),
              lambda: leaf_from_bytes(leaf_to_bytes(torch.ones(2))),
              lambda: tree_from_numpy({"a": 1}),
-             lambda: ops.crc32_bytes_batch([b"abc"])]
+             lambda: ops.crc32_bytes_batch([b"abc"]),
+             lambda: get_model(olmo).init(0),
+             lambda: params_from_numpy({"embed": {}, "final_norm": {},
+                                        "layers": {}}, olmo),
+             lambda: ServeEngine(cpu_model, cpu_params),
+             lambda: serve(batch=1, prompt_len=8, tokens=2)]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

@@ -1,0 +1,60 @@
+"""The port's serving engine (``repro_torch.serving.ServeEngine``) on the
+CPU: a decode preempted mid-stream resumes from the Erda page store
+bit-identically (the analogue of the reference's
+``test_preemption_recovery_bit_identical``), and the page store's geometry
+for a full-size cache.  The restore's CRC verify runs the plain per-byte
+version here, about 14 s for this test's 327 KiB cache leaves."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.data import make_batch
+from repro_torch.launch import serve as tserve
+from repro_torch.models import get_model
+from repro_torch.serving import ServeEngine
+
+CPU = torch.device("cpu")
+
+
+def f32_cfg(get):
+    return dataclasses.replace(get("olmo_1b").scaled_down(), dtype="float32")
+
+
+def prompts(cfg, seq=32, batch=2):
+    return make_batch(cfg, ShapeConfig("t", seq, batch, "prefill"))
+
+
+def test_preemption_recovery_bit_identical():
+    cfg = f32_cfg(get_config)
+    model = get_model(cfg, CPU)
+    params = model.init(0)
+    batch = prompts(cfg)
+    clean = ServeEngine(model, params, snapshot_every=4, device=CPU).generate(
+        batch, 12, seq_id=1)
+    engine = ServeEngine(model, params, snapshot_every=4, device=CPU)
+    crashy = engine.generate(batch, 12, seq_id=2, crash_at=6)
+    assert clean.shape == (2, 12) and clean.dtype == np.int32
+    np.testing.assert_array_equal(clean, crashy)
+    assert engine.pages.stats["reads"] > 0  # the recovery read the page store
+
+
+def test_recovery_without_a_snapshot_raises():
+    cfg = f32_cfg(get_config)
+    model = get_model(cfg, CPU)
+    engine = ServeEngine(model, model.init(0), snapshot_every=0, device=CPU)
+    with pytest.raises(RuntimeError, match="no snapshot"):
+        engine.generate(prompts(cfg, seq=8, batch=1), 4, crash_at=1)
+
+
+def test_page_store_segments_hold_a_whole_cache_leaf():
+    cfg = get_config("olmo_1b")  # full config: a 96 MiB k leaf at 4 x 384 tokens
+    store = tserve.page_store_for(cfg, 4, 256, 16, 8, CPU)
+    shard = store.store.cluster.cfg
+    leaf = 16 * 4 * (256 + 128) * 16 * 128 * 2
+    assert leaf == 96 << 20
+    assert leaf < shard.segment_size <= leaf + (68 << 10)
+    assert shard.device_size >= (4 + 5 * 4) * shard.segment_size

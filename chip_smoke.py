@@ -8,10 +8,14 @@ Phases, each printing one JSON line and raising on any mismatch:
   device      torch / CUDA versions, the card's name and power limit, and the
               build of every kernel from src/repro_torch/kernels/csrc/;
   crc32       the CRC-32 kernel against its plain PyTorch version and host
-              zlib, exactly, with kernel / plain / zlib times;
-  flash_attention  the flash-attention kernel against its plain PyTorch
-              version at the serve path's and olmo_1b's shapes, with kernel /
-              plain / SDPA times and the bound;
+              zlib, exactly (widths at the kernel's chunk boundaries among
+              them), with kernel / plain / zlib times, and alone at the
+              serve restore's (3, 25165843) against zlib and the bound;
+  flash_attention  the flash-attention kernel (bf16: tensor-core route;
+              f32: CUDA-core route) against its plain PyTorch version at the
+              serve path's and olmo_1b's shapes and at the 64-key tile's
+              edges (S = 64, 65, 100), with kernel / plain / SDPA times and
+              the bound;
   kv_pages    the KV page store at olmo_1b decode-cache widths: snapshot,
               restore, a torn snapshot, failover — every restore bit-exact;
   checkpoint  the checkpoint manager on an olmo_1b-width bf16 state: save,
@@ -19,8 +23,9 @@ Phases, each printing one JSON line and raising on any mismatch:
   serve       olmo_1b at its full config (random weights from a seed): 4
               requests x 256 prompt tokens, 16 greedy tokens with decode-cache
               snapshots in the page store, clean and preempted at token 10 —
-              the tokens must be equal; first the model on the card against
-              the CPU on a small f32 config;
+              the tokens must be equal and the bf16 prefill must take only
+              the flash kernel's tensor-core route; first the model on the
+              card against the CPU on a small f32 config;
   kernels     one JSON line with an entry per ported kernel: launches on
               the main paths, agreement with the plain version, time beside
               its bound, the plain version's and the library call's.
@@ -46,11 +51,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
-#: integer operations per CRC byte step: xor, and, table load, shift, xor
+#: integer operations a CRC byte needs by the byte-table recurrence (xor,
+#: and, table load, shift, xor); the kernel's slice-by-16 does about 3, and
+#: either way the bytes bound it
 CRC_OPS_PER_BYTE = 5
 #: widest CRC batch (32-bit words a row) the kernels line holds against the
 #: plain version: a (642, 16401) KV restore batch takes it ~4 s on the card
 PLAIN_CRC_WORDS = 1 << 17
+#: the serve restore's CRC batch: 3 cache leaves of 96 MiB (+ 12 bytes of
+#: record header, in words) on one page-store shard
+SERVE_RESTORE_CRC = (3, 25165843)
 
 #: olmo_1b widths (src/repro/configs/olmo_1b.py)
 OLMO_1B = dict(d_model=2048, n_kv_heads=16, head_dim=128, d_ff=8192,
@@ -58,10 +68,14 @@ OLMO_1B = dict(d_model=2048, n_kv_heads=16, head_dim=128, d_ff=8192,
 
 #: flash-attention shapes: (BH, S, hd), dtype, causal.  The first is the
 #: serve phase's prefill (4 requests x 16 heads, 256 tokens); (32, 2048, 128)
-#: is olmo_1b's full context
+#: is olmo_1b's full context; S = 64, 65, 100 hold the bf16 kernel's 64-key
+#: tile edge and ragged tail against the plain version
 FLASH_SHAPES = [((64, 256, 128), "bfloat16", True),
                 ((64, 512, 128), "bfloat16", True),
                 ((32, 2048, 128), "bfloat16", True),
+                ((16, 64, 128), "bfloat16", True),
+                ((16, 65, 128), "bfloat16", True),
+                ((16, 100, 128), "bfloat16", False),
                 ((3, 192, 32), "float32", True),
                 ((2, 128, 64), "float32", False)]
 #: max |kernel - plain| allowed, by dtype (the reference's tolerances)
@@ -184,35 +198,44 @@ def phase_device() -> dict:
     return info
 
 
-def phase_crc32(dev) -> None:
-    """Kernel vs plain version vs zlib, exactly, at the listed shapes."""
+def crc_case(n: int, w: int, seed: int, dev, *, plain: bool = True) -> dict:
+    """The CRC kernel through its wrapper (``ops.crc32_batch``; on the CPU,
+    the plain version) on random (n, w) words, exactly against host zlib
+    and, where ``plain``, the plain version; on the card also the device
+    time of the kernel and of the plain version."""
     from repro_torch.kernels import ops, ref
-    for i, (n, w) in enumerate([(1, 1), (1000, 3), (512, 256), (2048, 16400)]):
-        data = random_words((n, w), seed=i, dev=dev)
-        got = ops.crc32_batch(data)
-        plain = ref.crc32_ref(data)
-        check(bool((got == plain).all()), f"crc32 kernel != plain at {(n, w)}")
-        t0 = time.perf_counter()
-        want = zlib_rows(data)
-        zlib_ms = (time.perf_counter() - t0) * 1e3
-        check(got.cpu().tolist() == want, f"crc32 kernel != zlib at {(n, w)}")
-        emit("crc32", shape=[n, w],
-             ms=cuda_ms(lambda: ops.crc32_batch(data), 20),
-             plain_ms=cuda_ms(lambda: ref.crc32_ref(data), 1),
-             zlib_ms=zlib_ms, bound_ms=crc_bound_ms(n, w)[0], exact=True)
-    # 4 MiB records (a checkpoint shard): against zlib only — the plain
-    # version's per-byte loop would take minutes at this width
-    n, w = 120, 1048581
-    data = random_words((n, w), seed=99, dev=dev)
+    data = random_words((n, w), seed=seed, dev=dev)
     got = ops.crc32_batch(data)
     t0 = time.perf_counter()
     want = zlib_rows(data)
     zlib_ms = (time.perf_counter() - t0) * 1e3
-    check(got.cpu().tolist() == want, "crc32 kernel != zlib on 4 MiB rows")
-    ms = cuda_ms(lambda: ops.crc32_batch(data), 3)
-    emit("crc32", shape=[n, w], ms=ms, plain_ms=None, zlib_ms=zlib_ms,
-         bound_ms=crc_bound_ms(n, w)[0], exact=True,
-         byte_step_ns=ms * 1e6 / (4 * w))
+    check(got.cpu().tolist() == want, f"crc32 kernel != zlib at {(n, w)}")
+    if plain:
+        check(bool((got == ref.crc32_ref(data)).all()),
+              f"crc32 kernel != plain at {(n, w)}")
+    bound, by = crc_bound_ms(n, w)
+    out = {"shape": [n, w], "exact": True, "zlib_ms": zlib_ms,
+           "bound_ms": bound, "bound_by": by, "ms": None, "plain_ms": None}
+    if dev.type == "cuda":
+        out["ms"] = profiled_ms(lambda: ops.crc32_batch(data), 10)
+        if plain:
+            out["plain_ms"] = cuda_ms(lambda: ref.crc32_ref(data), 1)
+    return out
+
+
+def phase_crc32(dev, shapes=None, *, long=(120, 1048581),
+                serve=SERVE_RESTORE_CRC) -> list:
+    """Kernel vs plain version vs zlib, exactly, at the listed shapes (the
+    chunk-boundary widths among them); then 4 MiB records (a checkpoint
+    shard) and the serve restore's batch against zlib only — the plain
+    version's per-byte loop would take minutes to hours at those widths."""
+    from repro_torch.kernels.crc32 import CHUNK_UNITS
+    c = 4 * CHUNK_UNITS  # words of one chunk of the kernel's first pass
+    shapes = shapes or [(1, 1), (1000, 3), (512, 256), (2048, 16400),
+                        (7, c - 1), (7, c), (7, c + 1)]
+    out = [crc_case(n, w, seed=i, dev=dev) for i, (n, w) in enumerate(shapes)]
+    return out + [crc_case(n, w, seed=99 + i, dev=dev, plain=False)
+                  for i, (n, w) in enumerate((long, serve))]
 
 
 def flash_case(shape, dtype: str, causal: bool, seed: int, dev) -> dict:
@@ -536,6 +559,7 @@ def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import make_batch
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import ROUTES, launches_by_route
     from repro_torch.launch.serve import page_store_for
     from repro_torch.models import get_model
     from repro_torch.serving import ServeEngine
@@ -588,6 +612,10 @@ def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
     check(np.array_equal(clean, preempted), "preempted tokens != clean tokens")
     check(len(times["preempted"]["restore_ms"]) == 1, "no restore ran")
     check(dev.type == "cpu" or flash.launches > 0, "serve launched no flash kernel")
+    routes = launches_by_route(flash.shapes)
+    want_route = ROUTES[cfg.dtype]
+    check(all(n == 0 for r, n in routes.items() if r != want_route),
+          f"the {cfg.dtype} prefill took another flash route: {routes}")
     check(dev.type == "cpu" or crc.launches > 0, "restore launched no CRC kernel")
     mean = lambda xs: sum(xs) / len(xs)
     out = {"config": cfg.name, "params": n_params, "dtype": cfg.dtype,
@@ -605,14 +633,16 @@ def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
     for name, count in (("flash_attention", flash), ("crc32_batch", crc)):
         out[name] = {"launches": count.launches,
                      "shapes": {str(k): v for k, v in count.shapes.items()}}
+    out["flash_attention"]["by_route"] = routes
     return out
 
 
-def flash_entry(dev, launches: int, shapes: dict, dtype: str) -> dict:
-    """The flash kernel at the main path's most frequent shape (the serve
-    prefill's), beside its plain version, SDPA and its bound."""
-    shape = max(shapes, key=shapes.get)
-    case = flash_case(shape, dtype, True, seed=7, dev=dev)
+def flash_entry(dev, launches: int, shapes: dict) -> dict:
+    """The flash kernel at the main path's most frequent launch (the serve
+    prefill's shape and dtype), beside its plain version, SDPA and its
+    bound."""
+    *shape, dtype = max(shapes, key=shapes.get)
+    case = flash_case(tuple(shape), dtype, True, seed=7, dev=dev)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:70",
@@ -623,27 +653,20 @@ def flash_entry(dev, launches: int, shapes: dict, dtype: str) -> dict:
             "library_ms": case["library_ms"], "call_ms": case["call_ms"]}
 
 
-def phase_kernels(dev, launches: int, shapes: dict) -> dict:
-    """Time the CRC kernel at the main path's batch with the most rows (a KV
+def crc_entry(dev, launches: int, shapes: dict) -> dict:
+    """The CRC kernel at the main path's batch with the most rows (a KV
     restore's per-shard batch), beside its plain version and its bound.
     Batches of rows wider than ``PLAIN_CRC_WORDS`` are left out by the
     caller: the plain version's per-byte loop would take minutes on them."""
-    from repro_torch.kernels import ops, ref
     n, w = max(shapes, key=lambda s: (s[0], s[1]))
-    data = random_words((n, w), seed=7, dev=dev)
-    got = ops.crc32_batch(data)
-    plain = ref.crc32_ref(data)
-    err = int((got - plain).abs().max().item())
-    check(err == 0, f"crc32 kernel != plain at main-path shape {(n, w)}")
-    bound, by = crc_bound_ms(n, w)
+    case = crc_case(n, w, seed=7, dev=dev)
     return {"name": "crc32_batch", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/crc32.cu",
             "replaces": "src/repro/kernels/crc32.py:61",
-            "launches": launches, "matches_plain": True, "max_abs_err": err,
-            "shape": [n, w],
-            "ms": cuda_ms(lambda: ops.crc32_batch(data), 10),
-            "plain_ms": cuda_ms(lambda: ref.crc32_ref(data), 1),
-            "bound_ms": bound, "bound_by": by, "library_ms": None}
+            "launches": launches, "matches_plain": True, "max_abs_err": 0,
+            "shape": [n, w], "ms": case["ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+            "library_ms": None}
 
 
 def main(argv=None) -> int:
@@ -665,7 +688,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import ops
     info = phase_device()
     if "crc32" in phases:
-        phase_crc32(dev)
+        for case in phase_crc32(dev):
+            emit("crc32", **case)
     if "flash_attention" in phases:
         for case in run_flash_attention(dev):
             emit("flash_attention", **case)
@@ -691,10 +715,10 @@ def main(argv=None) -> int:
         crc_shapes = {k: v for k, v in shapes["crc32_batch"].items()
                       if k[1] <= PLAIN_CRC_WORDS}
         if crc_shapes:
-            entries.append(phase_kernels(dev, launches["crc32_batch"], crc_shapes))
+            entries.append(crc_entry(dev, launches["crc32_batch"], crc_shapes))
         if shapes["flash_attention"]:
             entries.append(flash_entry(dev, launches["flash_attention"],
-                                       shapes["flash_attention"], res["dtype"]))
+                                       shapes["flash_attention"]))
         print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

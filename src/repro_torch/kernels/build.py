@@ -3,8 +3,11 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds), at first
 use, into ``build/repro_torch_kernels/`` at the repository root, keyed by a
-hash of the source and the flags.  A missing ``nvcc`` or a failed build
-raises: there is no fallback.
+hash of the source, every shared header ``csrc/*.cuh`` and the flags.  The
+flash kernel's TMA descriptors are encoded by ``cuTensorMapEncodeTiled``,
+looked up at run time with ``cudaGetDriverEntryPoint``, so nothing links
+``-lcuda``.  A missing ``nvcc`` or a failed build raises: there is no
+fallback.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -63,9 +68,19 @@ def _nvcc() -> str:
                        "CUDA kernels are built from source at first use")
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16-byte aligned start (a copy if needed), as
+    the kernels' 16-byte loads and TMA copies require."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -7,11 +7,17 @@ source, its bound and its design notes are in ``csrc/flash_attention.cu``.
 
 Layout: q, k, v and the output are (BH, S, hd), float32 or bfloat16, with
 hd in ``HEAD_DIMS``; ``ops.flash_attention`` folds (B, S, H, hd) into it.
+
+Two routes, by dtype: bfloat16 runs on the tensor cores (wgmma, TMA), float32
+on the CUDA cores (the tolerance of the float32 path rules out TF32).  Each
+launch is counted under the key (BH, S, hd, dtype name), so a run shows
+which route it took (``launches_by_route``).
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Dict, Tuple
 
 import torch
 
@@ -21,6 +27,8 @@ from repro_torch.kernels import build
 HEAD_DIMS = (32, 64, 128)
 #: torch dtype -> the kernel's dtype code
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: dtype name (the last element of a launch key) -> the route that runs it
+ROUTES = {"bfloat16": "wgmma", "float32": "cuda_core"}
 
 #: launches of the CUDA kernel (never the plain version)
 COUNT = build.LaunchCount()
@@ -34,9 +42,16 @@ def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+def dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def launches_by_route(shapes: Dict[Tuple, int]) -> Dict[str, int]:
+    """Launches of each route in a ``LaunchCount.shapes`` of this kernel."""
+    out = {route: 0 for route in ROUTES.values()}
+    for key, n in shapes.items():
+        out[ROUTES[key[-1]]] += n
+    return out
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -49,7 +64,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in DTYPE_CODES or q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"the kernel takes float32/bfloat16 and head_dim in "
                          f"{HEAD_DIMS}, got {q.dtype} and {q.shape[-1]}")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = build.aligned16(q), build.aligned16(k), build.aligned16(v)
     bh, s, hd = q.shape
     out = torch.empty_like(q)
     if out.numel():
@@ -64,5 +79,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      1.0 / math.sqrt(hd), stream)
         if err != 0:
             raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
-        COUNT.add((bh, s, hd))
+        COUNT.add((bh, s, hd, dtype_name(q.dtype)))
     return out

@@ -91,5 +91,38 @@ def test_serve_phase_on_cpu():
     assert out["preempted"]["restore_ms"] is not None
     assert out["clean"]["snapshots"] == out["preempted"]["snapshots"] == 3
     assert out["flash_attention"]["launches"] == 0  # the CPU runs the plain version
+    assert out["flash_attention"]["by_route"] == {"wgmma": 0, "cuda_core": 0}
     # {pos, k, kv_pos, v}: the k / v leaves are (L, B, S + 128, KV, hd) bf16
     assert out["largest_cache_leaf_bytes"] == 4 * 2 * (16 + 128) * 4 * 32 * 2
+
+
+def test_crc32_phase_on_cpu():
+    """Exact checks (chunk-boundary widths scaled down), then the long-row
+    and serve-restore cases against zlib only; no device times off the
+    card."""
+    out = chip_smoke.phase_crc32(torch.device("cpu"),
+                                 shapes=[(1, 1), (3, 7), (2, 8)],
+                                 long=(2, 300), serve=(3, 1001))
+    assert [c["shape"] for c in out] == [[1, 1], [3, 7], [2, 8], [2, 300], [3, 1001]]
+    assert all(c["exact"] and c["ms"] is None for c in out)
+    assert out[-1]["plain_ms"] is None and out[-1]["bound_by"] == "bytes"
+
+
+def test_kernels_line_entries_on_cpu():
+    cpu = torch.device("cpu")
+    crc = chip_smoke.crc_entry(cpu, 5, {(4, 9): 3, (6, 2): 2})
+    assert crc["shape"] == [6, 2] and crc["launches"] == 5 and crc["max_abs_err"] == 0
+    flash = chip_smoke.flash_entry(cpu, 3, {(2, 40, 32, "float32"): 2,
+                                            (1, 8, 32, "bfloat16"): 1})
+    assert flash["shape"] == [2, 40, 32] and flash["dtype"] == "float32"
+    assert flash["max_abs_err"] == 0.0 and flash["ms"] is None
+    for entry in (crc, flash):
+        assert {"name", "route", "source", "replaces", "launches", "max_abs_err",
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(entry)
+        assert (ROOT / entry["source"]).exists()
+
+
+def test_flash_shapes_hold_the_tile_edges():
+    edges = {s for (bh, s, hd), dtype, _c in chip_smoke.FLASH_SHAPES
+             if dtype == "bfloat16" and hd == 128}
+    assert {64, 65, 100} <= edges

@@ -16,6 +16,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import ServerConfig, layout, make_store
 from repro_torch.data import make_batch
+from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import ops, ref
 from repro_torch.models import get_model
 from repro_torch.tree import map_leaves
@@ -31,7 +32,10 @@ def cuda_device():
 
 
 @pytest.mark.parametrize("n,w", [(1, 1), (4, 16), (32, 64), (128, 7),
-                                 (1000, 3), (512, 256), (65, 4097)])
+                                 (1000, 3), (512, 256), (65, 4097),
+                                 # the kernel's chunk (8192 words) boundaries
+                                 (3, 8188), (3, 8189), (3, 8191), (3, 8192),
+                                 (3, 8193), (2, 16385)])
 def test_crc32_kernel_matches_plain_and_zlib(cuda_device, n, w):
     data = np.random.default_rng(n * 100 + w).integers(
         0, 2**32, size=(n, w), dtype=np.uint32)
@@ -41,6 +45,17 @@ def test_crc32_kernel_matches_plain_and_zlib(cuda_device, n, w):
     assert ops.COUNTS["crc32_batch"].launches == before + 1
     assert got.is_cuda and torch.equal(got, ref.crc32_ref(words))
     assert got.cpu().tolist() == [zlib.crc32(r.tobytes()) for r in data]
+
+
+def test_crc32_kernel_long_row_matches_zlib(cuda_device):
+    """One 16 MiB row (2048 chunks) and rows of 4 MiB + 12 B, each starting
+    at another 16-byte phase: against zlib (the plain version's per-byte
+    loop is too slow at this width)."""
+    rng = np.random.default_rng(16)
+    for n, w in [(1, 1 << 22), (5, 1048579)]:
+        data = rng.integers(0, 2**32, size=(n, w), dtype=np.uint32)
+        got = ops.crc32_batch(torch.from_numpy(data.view(np.int32)).to(cuda_device))
+        assert got.cpu().tolist() == [zlib.crc32(r.tobytes()) for r in data]
 
 
 def test_verify_records_on_card_equals_cpu(cuda_device):
@@ -69,7 +84,7 @@ def test_store_round_trip_on_card(cuda_device):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)])
-@pytest.mark.parametrize("s", [1, 100, 192, 512])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 100, 192, 512, 2048])
 @pytest.mark.parametrize("hd", [32, 64, 128])
 def test_flash_kernel_matches_plain(cuda_device, hd, s, dtype, tol, causal):
     rng = np.random.default_rng(hd * 1000 + s)
@@ -84,6 +99,20 @@ def test_flash_kernel_matches_plain(cuda_device, hd, s, dtype, tol, causal):
     assert got.dtype == dtype and got.is_cuda
     err = (fold(got).float() - want.float()).abs().max().item()
     assert err <= tol, err
+
+
+def test_flash_routes_are_counted_by_dtype(cuda_device):
+    """A bf16 call advances the tensor-core (wgmma) route's count, an f32
+    call the CUDA-core route's."""
+    count = ops.COUNTS["flash_attention"]
+    q = torch.randn(1, 64, 2, 64, device=cuda_device)
+    before = flash.launches_by_route(count.shapes)
+    ops.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    mid = flash.launches_by_route(count.shapes)
+    assert mid == {"wgmma": before["wgmma"] + 1, "cuda_core": before["cuda_core"]}
+    ops.flash_attention(q, q, q)
+    after = flash.launches_by_route(count.shapes)
+    assert after == {"wgmma": mid["wgmma"], "cuda_core": mid["cuda_core"] + 1}
 
 
 def test_model_prefill_on_card_matches_cpu(cuda_device):

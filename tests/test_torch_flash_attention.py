@@ -124,3 +124,64 @@ def test_cpu_runs_no_kernel():
     before = ops.COUNTS["flash_attention"].launches
     ops.flash_attention(*[torch.ones(1, 4, 2, 32)] * 3)
     assert ops.COUNTS["flash_attention"].launches == before
+
+
+def wgmma_model(q, k, v, causal):
+    """A torch model of the bf16 kernel's numerics (csrc/flash_attention.cu,
+    flash_fwd_wgmma_kernel): 64-row query tiles over 64-key tiles, causal
+    tiles in the future skipped, S = Q K^T accumulated in f32 and scaled in
+    f32 by log2(e)/sqrt(hd), NEG_INF masking on the diagonal tile, exp2
+    online softmax, P rounded to bf16 before P V, l clamped at 1e-30.
+    q, k, v: (BH, S, hd) bf16 -> (BH, S, hd) bf16."""
+    bh, s, hd = q.shape
+    scale_log2 = torch.tensor((1.0 / np.sqrt(hd)) * np.log2(np.e), dtype=torch.float32)
+    out = torch.empty(bh, s, hd, dtype=torch.float32)
+    rows_all = torch.arange(s)
+    for q0 in range(0, s, 64):
+        rows = rows_all[q0:q0 + 64]
+        qt = q[:, rows].float()
+        m = torch.full((bh, len(rows)), -1e30)
+        l = torch.zeros(bh, len(rows))
+        acc = torch.zeros(bh, len(rows), hd)
+        n_tiles = (rows[-1].item() // 64 + 1) if causal else -(-s // 64)
+        for t in range(n_tiles):
+            keys = rows_all[t * 64:(t + 1) * 64]
+            x = torch.einsum("bqh,bkh->bqk", qt, k[:, keys].float()) * scale_log2
+            if causal and t == n_tiles - 1:
+                x = x.masked_fill(keys[None, None, :] > rows[None, :, None], -1e30)
+            mx = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp2(m - mx)
+            p = torch.exp2(x - mx[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqk,bkh->bqh", p.bfloat16().float(), v[:, keys].float())
+            m = mx
+        out[:, rows] = acc / l.clamp_min(1e-30)[..., None]
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("s,hd", [(128, 64), (256, 128), (256, 64), (192, 32),
+                                  (100, 32), (1, 64), (1, 128), (100, 128),
+                                  (65, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_numerics_model_within_bf16_tolerance(s, hd, causal):
+    """The bf16 kernel's arithmetic, modelled on the CPU, against the JAX
+    package's plain version and its Pallas kernel in interpret mode; the
+    model's error is the prediction for the card's."""
+    q, k, v = inputs((3, s, hd), "bfloat16", seed=s + hd)
+    got = wgmma_model(*map(to_tensor, (q, k, v)), causal)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    plain = jref.attention_ref(jq, jk, jv, causal=causal)
+    pallas = flash_attention_pallas(jq, jk, jv, causal=causal, interpret=True)
+    np.testing.assert_allclose(f32(got), f32(plain), rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(f32(got), f32(pallas), rtol=2e-2, atol=2e-2)
+    # and the port's own plain version on the same bits
+    want = ref.attention_ref(*map(to_tensor, (q, k, v)), causal=causal)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+def test_launch_keys_name_the_route():
+    shapes = {(64, 256, 128, "bfloat16"): 32, (3, 192, 32, "float32"): 2,
+              (2, 8, 64, "bfloat16"): 1}
+    assert flash.launches_by_route(shapes) == {"wgmma": 33, "cuda_core": 2}
+    assert flash.dtype_name(torch.bfloat16) == "bfloat16"

@@ -26,6 +26,13 @@ Phases, each printing one JSON line and raising on any mismatch:
               the tokens must be equal and the bf16 prefill must take only
               the flash kernel's tensor-core route; first the model on the
               card against the CPU on a small f32 config;
+  train       olmo_1b at its full config trained by the port's trainer: 5
+              steps of 4 x 2048 tokens with an Erda checkpoint of the whole
+              train state (11.8 GB) after step 3, then a fresh trainer
+              resumes from it (every shard CRC-verified on the card) and its
+              losses must equal the uninterrupted run's; no flash launch;
+              first one train step on the card against the CPU on a small
+              f32 config (loss and every gradient);
   kernels     one JSON line with an entry per ported kernel: launches on
               the main paths, agreement with the plain version, time beside
               its bound, the plain version's and the library call's.
@@ -61,6 +68,11 @@ PLAIN_CRC_WORDS = 1 << 17
 #: the serve restore's CRC batch: 3 cache leaves of 96 MiB (+ 12 bytes of
 #: record header, in words) on one page-store shard
 SERVE_RESTORE_CRC = (3, 25165843)
+
+#: the train phase's tolerance on resumed losses (the reference's, in
+#: tests/test_checkpoint.py) and on card-vs-CPU gradients (its model check)
+RESUME_REL = 1e-4
+GRAD_TOL = 3e-5
 
 #: olmo_1b widths (src/repro/configs/olmo_1b.py)
 OLMO_1B = dict(d_model=2048, n_kv_heads=16, head_dim=128, d_ff=8192,
@@ -105,26 +117,60 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: host seconds each profiler session traces before and after the work it
+#: measures.  Sessions that ran the work soon after they began, or ended
+#: soon after it, have lost the device events of the work's first or last
+#: milliseconds, most often after the card had idled (the train phase's
+#: checkpoint save and restore idle it for two minutes; PERF.md §7)
+TRACE_PAD_S = 2.0
+#: name and cycles of the spin kernel (``torch.cuda._sleep``) launched just
+#: before and just after the traced work
+MARK_KERNEL = "spin_kernel"
+MARK_CYCLES = 1000
+
+
+def traced(fn):
+    """(``torch.profiler`` trace, ``fn()``) of one call of ``fn``, between
+    two spin kernels on the current stream, ``TRACE_PAD_S`` seconds after
+    the session begins and before it ends.  Raises unless the trace kept
+    both markers: the stream runs them in order around ``fn``'s kernels, so
+    a trace that lost the device events of the work's first (or last)
+    milliseconds lost a marker."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+        torch.cuda._sleep(MARK_CYCLES)
+        out = fn()
+        torch.cuda._sleep(MARK_CYCLES)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+    marks = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and MARK_KERNEL in e.key)
+    check(marks == 2, f"the profiler's trace kept {marks} of its 2 marker kernels: "
+          f"it lost device events")
+    return prof, out
+
+
 def traced_device_ms(prof) -> float:
-    """Summed device time (ms) of every kernel and copy in a profiler trace."""
+    """Summed device time (ms) of every kernel and copy in a ``traced``
+    trace, the marker kernels left out."""
     import torch
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and MARK_KERNEL not in e.key) / 1e3
 
 
 def profiled_ms(fn, reps: int) -> float:
-    """Device time of one ``fn`` call, from a ``torch.profiler`` trace of
-    ``reps`` calls after one warm-up: the work of the kernels it launches,
-    without the host's cost of launching them (which ``cuda_ms`` counts
-    whenever the host is slower than the card)."""
+    """Device time of one ``fn`` call, from a ``traced`` session of ``reps``
+    calls after one warm-up: the work of the kernels it launches, without
+    the host's cost of launching them (which ``cuda_ms`` counts whenever
+    the host is slower than the card)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    prof, _ = traced(lambda: [fn() for _ in range(reps)])
     ms = traced_device_ms(prof)
     check(ms > 0, "the profiler's trace holds no device time")
     return ms / reps
@@ -478,21 +524,27 @@ def timed(fn, sink: list, dev):
     return run
 
 
-def busy_share(fn, dev) -> dict:
-    """Host time of one ``fn`` call under ``torch.profiler``, and the share
+def busy_share(fn, dev, top: int = 0) -> dict:
+    """Host time of one ``fn`` call in a ``traced`` session, and the share
     of it in which the card ran work: the device time of every kernel and
     copy in the trace over the host time (the profiler's own cost included).
-    The share is None off the card, or when the trace holds no device time."""
+    The share is None off the card.  ``top`` > 0 adds the device ms of the
+    ``top`` costliest kernel names."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     if dev.type != "cuda":
         return {"host_ms": wall_ms(fn, dev)[0], "device_ms": None, "busy_share": None}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        ms, _ = wall_ms(fn, dev)
+    prof, (ms, _) = traced(lambda: wall_ms(fn, dev))
     device_ms = traced_device_ms(prof)
-    return {"host_ms": ms, "device_ms": device_ms,
-            "busy_share": device_ms / ms if device_ms else None}
+    check(device_ms > 0, "the profiler's trace holds no device time")
+    out = {"host_ms": ms, "device_ms": device_ms, "busy_share": device_ms / ms}
+    if top:  # kernels grouped by the first 90 characters of their names
+        by_name = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and MARK_KERNEL not in e.key:
+                name = e.key[:90]
+                by_name[name] = by_name.get(name, 0.0) + e.self_device_time_total / 1e3
+        out["top_kernels_ms"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
+    return out
 
 
 def run_model_check(dev, *, arch: str = "olmo_1b", batch: int = 2,
@@ -637,6 +689,167 @@ def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
     return out
 
 
+def run_train_check(dev, *, arch: str = "olmo_1b", batch: int = 2,
+                    seqs=(64, 640)) -> dict:
+    """One train step on ``dev`` against the CPU on the same weights
+    (``arch``'s scaled-down config in float32, every layer rematerialized as
+    at the full config, weights drawn on the CPU): the loss and every
+    gradient leaf within ``GRAD_TOL``, and the trainer step's loss and grad
+    norm.  S = 64 takes dense attention, 640 chunked (5 KV chunks of 128)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch
+    from repro_torch.launch.train import trainer_step
+    from repro_torch.models import get_model
+    from repro_torch.train.step import loss_and_grads, make_train_state
+    from repro_torch.tree import flatten_with_path, map_leaves
+
+    cfg = dataclasses.replace(get_config(arch).scaled_down(), dtype="float32",
+                              remat="full", attn_chunk=128)
+    cpu = torch.device("cpu")
+    state = make_train_state(get_model(cfg, cpu), 0)
+    worst = 0.0
+
+    def close(a, b, what):
+        nonlocal worst
+        a, b = a.to(cpu).float(), b.to(cpu).float()
+        err = float((a - b).abs().max().item())
+        worst = max(worst, err)
+        check(a.shape == b.shape and bool(torch.allclose(a, b, rtol=GRAD_TOL,
+                                                         atol=GRAD_TOL)),
+              f"train step on {dev} != CPU at {what}: max abs err {err}")
+
+    for seq in seqs:
+        batch_np = make_batch(cfg, ShapeConfig("check", seq, batch, "train"))
+        runs = []
+        for d in (dev, cpu):
+            model = get_model(cfg, d)
+            s = map_leaves(lambda t: t.to(d), state)
+            batch_d = {k: torch.as_tensor(v, device=d) for k, v in batch_np.items()}
+            loss, grads = loss_and_grads(model.train_loss, s["params"], batch_d)
+            _new, metrics = trainer_step(model, 3e-4, 10)(s, batch_d)
+            runs.append((loss, grads, metrics))
+        (la, ga, ma), (lb, gb, mb) = runs
+        close(la, lb, f"S={seq} loss")
+        close(ma["loss"], mb["loss"], f"S={seq} step loss")
+        close(ma["grad_norm"], mb["grad_norm"], f"S={seq} grad norm")
+        for (path, a), (_q, b) in zip(flatten_with_path(ga), flatten_with_path(gb)):
+            close(a, b, f"S={seq} grad {path}")
+    return {"config": f"{arch} scaled_down float32 remat=full attn_chunk=128",
+            "batch": batch, "seqs": list(seqs), "max_abs_err": worst, "tol": GRAD_TOL}
+
+
+def run_train(dev, *, cfg=None, batch: int = 4, seq: int = 2048, steps: int = 5,
+              ckpt_at: int = 3, lr: float = 3e-4, seed: int = 0) -> dict:
+    """The port's trainer (``launch.train``: its step, schedule, batches,
+    checkpoint format and sized manager) at ``cfg`` (default: olmo_1b at its
+    full config): ``steps`` steps uninterrupted with a checkpoint after
+    ``ckpt_at``, then a fresh trainer restores it and repeats the steps
+    after it.  Fails unless every loss and grad norm is finite, the resumed
+    losses equal the uninterrupted ones at ``RESUME_REL``, and on the card
+    the restore launched the CRC kernel and the flash kernel launched no
+    time (training's attention is the plain branch)."""
+    import math
+    import resource
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    from repro_torch.models import get_model
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.train.step import make_train_state
+    from repro_torch.tree import flatten_with_path
+
+    cfg = cfg or get_config("olmo_1b")
+    model = get_model(cfg, dev)
+    step_fn = T.trainer_step(model, lr, steps)
+    batches = [T.batch_at(cfg, seq, batch, s, dev) for s in range(steps)]
+    state = make_train_state(model, seed)
+    n_params = sum(t.numel() for _p, t in flatten_with_path(state["params"]))
+    state_bytes = T.nbytes(state)
+    mgr = T.checkpoint_manager_for(state_bytes, saves=1, device=dev)
+    flash, crc = ops.COUNTS["flash_attention"], ops.COUNTS["crc32_batch"]
+    cuda = dev.type == "cuda"
+
+    ops.reset_counts()  # the main path starts here
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, norms, step_ms = [], [], []
+    save = {}
+    for s in range(steps):
+        ms, (state, metrics) = wall_ms(lambda: step_fn(state, batches[s]), dev)
+        step_ms.append(ms)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        if s + 1 == ckpt_at:
+            save["ms"], save["shards"] = wall_ms(
+                lambda: T.save_train_state(mgr, s + 1, state), dev)
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"a loss or grad norm is not finite: {losses} {norms}")
+
+    # outside the compared runs: the optimizer update alone (the state's
+    # parameters stand in for gradients of their shape and dtype) and one
+    # profiled step
+    opt_cfg = AdamWConfig(lr=lr)
+    update = lambda: adamw_update(opt_cfg, state["params"], state["params"], state["opt"])
+    opt_ms = cuda_ms(update, 3) if cuda else wall_ms(update, dev)[0]
+    busy = busy_share(lambda: step_fn(state, batches[-1]), dev, top=8)
+    del state
+
+    # a fresh trainer resumes from the store
+    model = get_model(cfg, dev)
+    step_fn = T.trainer_step(model, lr, steps)
+    launches0, shapes0 = crc.launches, dict(crc.shapes)
+    restore_ms, (start, state) = wall_ms(
+        lambda: T.restore_train_state(mgr, model), dev)
+    restore_shapes = {str(k): n - shapes0.get(k, 0) for k, n in crc.shapes.items()
+                      if n != shapes0.get(k, 0)}
+    restore_launches = crc.launches - launches0
+    check(start == ckpt_at, f"resumed at step {start}, want {ckpt_at}")
+    check(int(state["opt"]["step"]) == ckpt_at, "restored optimizer step")
+    resumed, resumed_norms = [], []
+    for s in range(start, steps):
+        state, metrics = step_fn(state, batches[s])
+        resumed.append(float(metrics["loss"]))
+        resumed_norms.append(float(metrics["grad_norm"]))
+    for a, b in zip(resumed, losses[start:]):
+        check(abs(a - b) <= RESUME_REL * abs(b),
+              f"resumed losses {resumed} != uninterrupted {losses[start:]}")
+    check(all(math.isfinite(x) for x in resumed_norms), "a resumed grad norm is not finite")
+    check(flash.launches == 0, f"training launched the flash kernel {flash.launches}x")
+    check(not cuda or restore_launches > 0, "the restore launched no CRC kernel")
+
+    tokens = batch * seq
+    median = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
+    flop = 6 * n_params * tokens
+    flop_bound_ms = flop / BF16_TENSOR_OPS_PER_S * 1e3
+    opt_bytes = 22 * n_params  # reads p, g (bf16), m, v; writes p, m, v
+    opt_bound_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    return {"config": cfg.name, "params": n_params, "dtype": cfg.dtype,
+            "remat": cfg.remat, "layers": cfg.n_layers, "batch": batch, "seq": seq,
+            "steps": steps, "ckpt_at": ckpt_at, "losses": losses, "grad_norms": norms,
+            "resumed_losses": resumed, "resumed_grad_norms": resumed_norms,
+            "resumed_bitwise_equal": resumed == losses[start:],
+            "step_ms": step_ms, "step_ms_median_2_on": median,
+            "tokens_per_s": tokens / (median / 1e3),
+            "model_flop_per_step": flop, "flop_bound_ms": flop_bound_ms,
+            "flop_share": flop_bound_ms / median,
+            "flop_note": "6*N*T only: remat and attention add about 40% on top",
+            "opt_update_ms": opt_ms, "opt_bytes": opt_bytes,
+            "opt_bound_ms": opt_bound_ms, "profiled_step": busy,
+            "max_memory_allocated": peak, "state_bytes": state_bytes,
+            # the process's peak resident host memory so far (Linux: KiB)
+            "host_max_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+            "ckpt_servers": len(mgr.store.devs),
+            "save_ms": save["ms"], "save_shards": save["shards"],
+            "restore_ms": restore_ms, "restore_crc_launches": restore_launches,
+            "restore_crc_shapes": restore_shapes,
+            "flash_launches": flash.launches}
+
+
 def flash_entry(dev, launches: int, shapes: dict) -> dict:
     """The flash kernel at the main path's most frequent launch (the serve
     prefill's shape and dtype), beside its plain version, SDPA and its
@@ -672,7 +885,7 @@ def crc_entry(dev, launches: int, shapes: dict) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="device,crc32,flash_attention,kv_pages,"
-                    "checkpoint,serve,kernels")
+                    "checkpoint,serve,train,kernels")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     import torch
@@ -698,14 +911,17 @@ def main(argv=None) -> int:
     launches = {name: 0 for name in ops.COUNTS}
     shapes = {name: {} for name in ops.COUNTS}
     runs = [("kv_pages", run_kv_pages), ("checkpoint", run_checkpoint),
-            ("serve", run_serve)]
+            ("serve", run_serve), ("train", run_train)]
+    checks = {"serve": ("model_check", run_model_check),
+              "train": ("train_check", run_train_check)}
     for name, run in runs:
         if name not in phases:
             continue
-        if name == "serve":
-            emit("model_check", **run_model_check(dev))
+        if name in checks:
+            emit(checks[name][0], **checks[name][1](dev))
+        t0 = time.perf_counter()
         res = run(dev)
-        emit(name, **res)
+        emit(name, card=info["nvidia_smi"], phase_s=time.perf_counter() - t0, **res)
         for kname, count in ops.COUNTS.items():
             launches[kname] += count.launches
             for k, v in count.shapes.items():

@@ -51,7 +51,14 @@ def crc32_bytes_batch(buffers, device="cuda") -> np.ndarray:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Same-length self-attention over (B, S, H, hd) with H == KV heads
-    (callers repeat KV for GQA) -> (B, S, H, hd), in q's dtype."""
+    (callers repeat KV for GQA) -> (B, S, H, hd), in q's dtype.  Forward
+    only: the kernel writes through a raw pointer, so its output has no
+    gradient, and an input that requires one is refused rather than
+    silently cut from the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention has no backward: run it under "
+                           "torch.no_grad() / inference_mode, or train through "
+                           "the plain attention (models.layers.attention)")
     if q.dim() != 4:
         raise ValueError(f"expected (B, S, H, hd) tensors, got {tuple(q.shape)}")
     b, s, h, hd = q.shape

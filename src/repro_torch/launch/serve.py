@@ -10,7 +10,6 @@ segment holds a whole decode-cache leaf (``serving.page_shard_config``).
 from __future__ import annotations
 
 import argparse
-import dataclasses
 
 import torch
 
@@ -19,29 +18,11 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import make_store
 from repro_torch.data import make_batch
+from repro_torch.launch.train import scale_config
 from repro_torch.models import get_model
 from repro_torch.models.layers.basic import dtype_of
 from repro_torch.models.transformer import CACHE_PAD
 from repro_torch.serving import ErdaKVPageStore, ServeEngine, page_shard_config
-
-
-def scale_config(cfg, scale: str):
-    """The reference's ``repro.launch.train.scale_config`` (that module
-    imports jax, so the port keeps its own copy)."""
-    if scale == "full":
-        return cfg
-    if scale == "smoke":
-        return cfg.scaled_down()
-    if scale == "100m":  # ~100M params, runnable on CPU for a few hundred steps
-        return dataclasses.replace(
-            cfg, n_layers=6, d_model=512, n_heads=8, n_kv_heads=8, head_dim=64,
-            d_ff=2048, vocab_size=8192, window=min(cfg.window, 256) if cfg.window else 0,
-            n_experts=min(cfg.n_experts, 8), n_experts_active=min(cfg.n_experts_active, 2),
-            encoder_seq=min(cfg.encoder_seq, 64) if cfg.encoder_seq else 0,
-            n_patches=min(cfg.n_patches, 16) if cfg.n_patches else 0,
-            attn_chunk=256, remat="none",
-            tie_embeddings=False)  # untied head learns faster from small init
-    raise ValueError(scale)
 
 
 def page_store_for(cfg, batch: int, prompt_len: int, tokens: int,

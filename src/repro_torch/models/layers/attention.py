@@ -2,10 +2,12 @@
 attention, and single-token decode against a KV cache — the port of
 ``repro/models/layers/attention.py``.
 
-These are the plain versions, in float32 inside and cast back: what the CPU
-runs, and what the card runs outside prefill (decode attention, whose
-products stay ``torch.matmul``/``einsum`` as the reference left them to
-XLA).  On the card, prefill attention goes through the flash kernel instead
+These are the plain versions, in float32 inside and cast back, and
+differentiable: what the CPU runs, and what the card runs except in
+serving's prefill — training's attention (the reference computes it outside
+any kernel too) and decode attention, whose products stay
+``torch.matmul``/``einsum`` as the reference left them to XLA.  Serving's
+prefill attention goes through the flash kernel on the card
 (``models.transformer.block_fwd``).  The reference's sharding hints
 (``constrain_batch*``) are no-ops without a mesh and are dropped.  What
 only other families use comes with their slices: banded (sliding-window)
@@ -19,7 +21,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.models.layers.basic import apply_rope, dense_init, dtype_of
+from repro_torch.models.layers.basic import apply_rope, dense_init, dtype_of, remat
 
 NEG_INF = -1e30
 
@@ -54,8 +56,24 @@ def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
 
 
 # ----------------------------------------------------- chunked causal attention
+def _kv_chunk(qg, kj, vj, q_pos, kv_pos, causal: bool, m, l, acc):
+    """One KV chunk of the online softmax: (m, l, acc) -> updated."""
+    s = torch.einsum("bqkgh,bckh->bqkgc", qg, kj.float())
+    if causal:
+        mask = q_pos[:, None] >= kv_pos[None, :]               # (Sq, ck)
+        s = s.masked_fill(~mask[None, :, None, None, :], NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l_new = l * alpha + p.sum(-1)
+    acc_new = acc * alpha[..., None] + torch.einsum("bqkgc,bckh->bqkgh", p, vj.float())
+    return m_new, l_new, acc_new
+
+
 def chunked_attention(q, k, v, cfg, *, causal: bool = True) -> torch.Tensor:
-    """Online-softmax attention over KV chunks.  q:(B,Sq,H,hd), k/v:(B,Skv,KV,hd)."""
+    """Online-softmax attention over KV chunks.  q:(B,Sq,H,hd), k/v:(B,Skv,KV,hd).
+    Each chunk's body is rematerialized in the backward pass (``remat``), so
+    training does not keep every chunk's (s, p) score buffers."""
     B, Sq, H, hd = q.shape
     Skv = k.shape[1]
     KV = k.shape[2]
@@ -70,19 +88,10 @@ def chunked_attention(q, k, v, cfg, *, causal: bool = True) -> torch.Tensor:
     l = torch.zeros((B, Sq, KV, G), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, Sq, KV, G, hd), dtype=torch.float32, device=q.device)
     for j in range(Skv // ck):
-        kj = k[:, j * ck:(j + 1) * ck].float()
-        vj = v[:, j * ck:(j + 1) * ck].float()
         kv_pos = j * ck + torch.arange(ck, device=q.device)
-        s = torch.einsum("bqkgh,bckh->bqkgc", qg, kj)
-        if causal:
-            mask = q_pos[:, None] >= kv_pos[None, :]           # (Sq, ck)
-            s = s.masked_fill(~mask[None, :, None, None, :], NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum("bqkgc,bckh->bqkgh", p, vj)
-        m = m_new
+        m, l, acc = remat(_kv_chunk, qg, k[:, j * ck:(j + 1) * ck],
+                          v[:, j * ck:(j + 1) * ck], q_pos, kv_pos, causal,
+                          m, l, acc)
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 

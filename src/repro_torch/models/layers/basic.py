@@ -4,10 +4,12 @@ of ``repro/models/layers/basic.py``.
 Parameters are nested dicts of tensors in the reference's layout: a weight
 is (d_in, d_out) and is applied as ``x @ W``.  Norms run in float32 whatever
 the activation dtype.  Random init draws from an explicit
-``torch.Generator`` and creates each tensor on the generator's device; the
-numbers differ from ``jax.random``'s, the distributions do not.  The
-reference's ``scan_layers`` becomes a plain loop in ``models.transformer``;
-the losses come with the training slice.
+``torch.Generator`` (the numbers differ from ``jax.random``'s, the
+distributions do not) and creates each tensor on the current default
+device: ``registry.get_model``'s init sets it to the model's device, and a
+``torch.device("meta")`` context gives shapes without storage.  The reference's ``scan_layers`` becomes a plain loop in
+``models.transformer``, and ``jax.checkpoint`` becomes ``remat``.
+``sinusoidal_positions`` serves only the encdec family and comes with it.
 """
 from __future__ import annotations
 
@@ -16,6 +18,16 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+
+def remat(fn, *args):
+    """``fn(*args)``, with its intermediate activations recomputed in the
+    backward pass instead of kept (``jax.checkpoint``); a plain call when no
+    gradient is being recorded."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -26,7 +38,7 @@ def dense_init(gen: torch.Generator, shape, dtype,
                scale: Optional[float] = None) -> torch.Tensor:
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32)
     return (w * scale).to(dtype)
 
 
@@ -34,8 +46,7 @@ def dense_init(gen: torch.Generator, shape, dtype,
 def init_norm(cfg, gen: torch.Generator) -> Dict:
     if cfg.norm == "nonparam_ln":  # olmo: no learned affine
         return {}
-    return {"scale": torch.ones((cfg.d_model,), dtype=dtype_of(cfg),
-                                device=gen.device)}
+    return {"scale": torch.ones((cfg.d_model,), dtype=dtype_of(cfg))}
 
 
 def apply_norm(params: Dict, x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -115,3 +126,42 @@ def unembed(params: Dict, x: torch.Tensor) -> torch.Tensor:
     if "unembed" in params:
         return x @ params["unembed"]
     return x @ params["table"].T
+
+
+# ------------------------------------------------------------------------ loss
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE in fp32; targets = tokens shifted by caller."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return (logz - gold).mean()
+
+
+def _ce_chunk(embed_params: Dict, xc, tc, wc) -> torch.Tensor:
+    logits = unembed(embed_params, xc).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tc[..., None])[..., 0]
+    return ((logz - gold) * wc).sum()
+
+
+def lm_loss_chunked(embed_params: Dict, x: torch.Tensor, tokens: torch.Tensor,
+                    chunk: int = 512) -> torch.Tensor:
+    """Fused unembed + next-token CE over sequence chunks, so the (B, S, V)
+    float32 logits never materialize; each chunk is rematerialized in the
+    backward pass (``remat``), trading one extra (B, c, V) product for the
+    storage.  The final position has weight 0 (the shift keeps S whole), and
+    the chunk is halved until it divides S."""
+    B_, S, _ = x.shape
+    tokens = tokens.long()
+    targets = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+    weights = torch.cat([torch.ones((B_, S - 1), dtype=torch.float32, device=x.device),
+                         torch.zeros((B_, 1), dtype=torch.float32, device=x.device)], dim=1)
+    c = min(chunk, S)
+    while S % c:
+        c //= 2
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(S // c):
+        sl = slice(i * c, (i + 1) * c)
+        total = total + remat(_ce_chunk, embed_params, x[:, sl], targets[:, sl],
+                              weights[:, sl])
+    return total / weights.sum()

@@ -7,6 +7,7 @@ stacked (L, ...) layer leaves split per layer, run by a plain loop (the
 reference's ``scan_layers``).
 
 Step functions:
+  train_loss(params, batch)           — next-token CE
   prefill(params, batch)              — (last_logits (B,1,V), cache)
   decode_step(params, cache, token)   — one token against the cache
 The cache is the reference's tree, ``{"pos": 0-d int32, "full": {"k":
@@ -15,7 +16,11 @@ its leaves flatten to the same paths (and page keys) as the reference's.
 
 On a CUDA tensor, prefill attention runs the flash kernel
 (``kernels.ops.flash_attention``) at every sequence length; on the CPU it is
-the reference's plain branch (dense up to 512 tokens, chunked above).  Ring
+the reference's plain branch (dense up to 512 tokens, chunked above).
+``train_loss`` always takes the plain branch: the flash kernel has no
+backward (nor has the reference's), and its wrapper refuses inputs that
+require a gradient.  With ``cfg.remat == "full"`` each layer is
+rematerialized in the backward pass, as the reference's scan body is.  Ring
 (sliding-window) and int8 caches, MoE, vlm and local_global are not ported
 yet: ``check_supported`` raises ``NotImplementedError`` for them.
 """
@@ -60,12 +65,13 @@ def _mix(cfg, p, x, attn_out):
     return x + B.apply_mlp(p["mlp"], h, cfg)
 
 
-def block_fwd(cfg, p, x, positions) -> Tuple[torch.Tensor, Tuple]:
-    """One layer over the whole prompt; returns (x, (k, v))."""
+def block_fwd(cfg, p, x, positions, *, flash: bool) -> Tuple[torch.Tensor, Tuple]:
+    """One layer over the whole sequence; returns (x, (k, v)).  ``flash``
+    sends the attention to the flash kernel, else to the plain branch."""
     B_, S, _ = x.shape
     h = B.apply_norm(p["ln1"], x, cfg.norm)
     q, k, v = A.qkv(p["attn"], h, cfg, positions)
-    if q.is_cuda:
+    if flash:
         G = cfg.n_heads // cfg.n_kv_heads
         kr, vr = (k, v) if G == 1 else (k.repeat_interleave(G, dim=2),
                                         v.repeat_interleave(G, dim=2))
@@ -108,12 +114,26 @@ def _embed_inputs(cfg, params, batch):
 
 
 def _backbone(cfg, params, x, positions):
-    """Returns (x, [(k, v)] per layer)."""
+    """Serving's pass: returns (x, [(k, v)] per layer)."""
     kvs = []
     for lp in params["layers"]:
-        x, kv = block_fwd(cfg, lp, x, positions)
+        x, kv = block_fwd(cfg, lp, x, positions, flash=x.is_cuda)
         kvs.append(kv)
     return x, kvs
+
+
+def train_loss(cfg, params, batch) -> torch.Tensor:
+    check_supported(cfg)
+    x, positions = _embed_inputs(cfg, params, batch)
+    tokens = torch.as_tensor(batch["tokens"], device=x.device)
+
+    def layer(lp, h):
+        return block_fwd(cfg, lp, h, positions, flash=False)[0]
+
+    for lp in params["layers"]:
+        x = B.remat(layer, lp, x) if cfg.remat == "full" else layer(lp, x)
+    x = B.apply_norm(params["final_norm"], x, cfg.norm)
+    return B.lm_loss_chunked(params["embed"], x, tokens, chunk=cfg.loss_chunk)
 
 
 # ---------------------------------------------------------------------- caches

@@ -1,0 +1,83 @@
+"""Training step factory: loss and gradients over the model's ``train_loss``
+plus the AdamW update, with optional gradient accumulation over
+microbatches — the port of ``repro/train/step.py``.
+
+Gradients come from ``torch.autograd.grad`` over the parameter leaves (in
+their dtype, as ``jax.grad`` gives them).  Microbatch gradients accumulate
+into float32 zeros and are scaled by ``1/n`` afterwards, and the schedule is
+evaluated at the pre-update step, as in the reference.  The reference's
+``lax.scan`` over microbatches is a plain loop here, so its ``unroll_micro``
+has no counterpart; ``max_seq`` waits for encdec, the one family whose
+parameters it sizes.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.tree import flatten_with_path, map_leaves, unflatten
+
+TrainState = Dict[str, Any]  # {"params": ..., "opt": {m, v, step}}
+
+
+def make_train_state(model, key=0) -> TrainState:
+    """Parameters from ``model.init(key)`` and zeroed AdamW state, on the
+    model's device."""
+    params = model.init(key)
+    return {"params": params, "opt": adamw_init(params)}
+
+
+def make_train_state_abstract(model) -> TrainState:
+    """The train state's tree, shapes and dtypes on the meta device: a
+    restore template that allocates nothing."""
+    params = model.init_abstract()
+    return {"params": params, "opt": adamw_init(params)}
+
+
+def loss_and_grads(loss_fn: Callable, params, batch) -> Tuple[torch.Tensor, Dict]:
+    """``jax.value_and_grad(loss_fn)(params, batch)``: the loss (detached)
+    and a gradient tree shaped like ``params``."""
+    leaves = [p.detach().requires_grad_(True)
+              for _path, p in flatten_with_path(params)]
+    with torch.enable_grad():
+        loss = loss_fn(unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), unflatten(params, list(grads))
+
+
+def make_train_step(model, opt_cfg: AdamWConfig = AdamWConfig(),
+                    *, n_microbatches: int = 1,
+                    schedule: Optional[Callable] = None):
+    loss_fn = model.train_loss
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        params = state["params"]
+        if n_microbatches == 1:
+            loss, grads = loss_and_grads(loss_fn, params, batch)
+        else:
+            def split(x):
+                x = torch.as_tensor(x)
+                b = x.shape[0]
+                return x.reshape(n_microbatches, b // n_microbatches, *x.shape[1:])
+            micro = {k: split(v) for k, v in batch.items()}
+            loss = torch.zeros((), dtype=torch.float32, device=model.device)
+            grads = map_leaves(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                     device=p.device), params)
+            for i in range(n_microbatches):
+                l, g = loss_and_grads(loss_fn, params, {k: v[i] for k, v in micro.items()})
+                loss = loss + l
+                grads = unflatten(grads, [a + b for (_p, a), (_q, b) in zip(
+                    flatten_with_path(grads), flatten_with_path(g))])
+            inv = 1.0 / n_microbatches
+            loss = loss * inv
+            grads = map_leaves(lambda g: g * inv, grads)
+
+        lr_scale = schedule(state["opt"]["step"]) if schedule else 1.0
+        new_params, new_opt, metrics = adamw_update(
+            opt_cfg, params, grads, state["opt"], lr_scale)
+        metrics["loss"] = loss
+        return {"params": new_params, "opt": new_opt}, metrics
+
+    return step

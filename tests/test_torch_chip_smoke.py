@@ -1,6 +1,7 @@
 """``chip_smoke.py``'s phases rehearsed on the CPU at a tiny size (plain
 versions of the kernels), and its refusal to run without a CUDA device or
 outside the repository."""
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -126,3 +127,39 @@ def test_flash_shapes_hold_the_tile_edges():
     edges = {s for (bh, s, hd), dtype, _c in chip_smoke.FLASH_SHAPES
              if dtype == "bfloat16" and hd == 128}
     assert {64, 65, 100} <= edges
+
+
+def tiny_olmo():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("olmo_1b").scaled_down(), n_layers=2,
+                               d_model=64, n_heads=2, n_kv_heads=2, head_dim=32,
+                               remat="full")
+
+
+def test_train_phase_on_cpu():
+    out = chip_smoke.run_train(torch.device("cpu"), cfg=tiny_olmo(), batch=2,
+                               seq=32, steps=5, ckpt_at=3)
+    assert len(out["losses"]) == 5 and len(out["resumed_losses"]) == 2
+    assert out["resumed_bitwise_equal"]  # the CPU repeats its arithmetic
+    assert out["flash_launches"] == 0 and out["restore_crc_launches"] == 0
+    assert out["ckpt_servers"] == 1 and out["save_shards"] > 0
+    assert out["max_memory_allocated"] is None  # no device numbers off the card
+    assert out["profiled_step"]["busy_share"] is None
+    n = out["params"]
+    assert out["opt_bytes"] == 22 * n
+    assert out["flop_bound_ms"] == pytest.approx(6 * n * 64 / 989e12 * 1e3)
+
+
+def test_full_config_train_bounds():
+    """The train phase's bounds at olmo_1b's full config: 6·N·T a step against
+    989 TFLOP/s and 22 bytes a parameter against 3.35 TB/s."""
+    from repro_torch.configs import get_config
+    n = get_config("olmo_1b").param_count()
+    assert n == 1_176_764_416
+    assert 6 * n * 8192 / chip_smoke.BF16_TENSOR_OPS_PER_S * 1e3 == pytest.approx(58.48, abs=0.01)
+    assert 22 * n / chip_smoke.HBM_BYTES_PER_S * 1e3 == pytest.approx(7.73, abs=0.01)
+
+
+def test_train_check_on_cpu():
+    out = chip_smoke.run_train_check(torch.device("cpu"), seqs=(16,))
+    assert out["max_abs_err"] == 0.0

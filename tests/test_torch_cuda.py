@@ -130,3 +130,50 @@ def test_model_prefill_on_card_matches_cpu(cuda_device):
     assert ops.COUNTS["flash_attention"].launches == before + cfg.n_layers
     assert cache["full"]["k"].is_cuda
     torch.testing.assert_close(got.cpu(), want, rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("seq,remat", [(40, "none"), (40, "full"), (640, "full")])
+def test_train_step_on_card_matches_cpu(cuda_device, seq, remat):
+    """olmo_1b scaled down, float32: one train step's loss and every
+    gradient on the card match the CPU within 3e-5 (S = 640 takes chunked
+    attention), and training launches no flash kernel."""
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import flatten_with_path
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("olmo_1b").scaled_down(), dtype="float32",
+                              remat=remat, attn_chunk=128)
+    params = get_model(cfg, "cpu").init(0)
+    batch = make_batch(cfg, ShapeConfig("t", seq, 2, "train"))
+    want_l, want_g = loss_and_grads(get_model(cfg, "cpu").train_loss, params, batch)
+    before = ops.COUNTS["flash_attention"].launches
+    got_l, got_g = loss_and_grads(get_model(cfg, cuda_device).train_loss,
+                                  map_leaves(lambda t: t.to(cuda_device), params), batch)
+    assert ops.COUNTS["flash_attention"].launches == before
+    assert got_l.is_cuda
+    np.testing.assert_allclose(got_l.item(), want_l.item(), rtol=3e-5, atol=3e-5)
+    for (p, a), (_q, b) in zip(flatten_with_path(got_g), flatten_with_path(want_g)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=3e-5, atol=3e-5,
+                                   err_msg=p)
+
+
+def test_flash_wrapper_refuses_gradients_on_card(cuda_device):
+    q = torch.randn(1, 64, 2, 64, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, q, q)
+    with torch.no_grad():
+        assert ops.flash_attention(q, q, q).shape == q.shape
+
+
+def test_trainer_resumes_on_card(cuda_device):
+    """``launch.train.train`` at the smoke scale on the card: checkpoint at
+    step 4, a fresh trainer resumes through the CRC kernel and repeats
+    steps 5-6 with the same losses."""
+    from repro_torch.launch.train import train
+    ops.reset_counts()
+    _s, losses_a, mgr = train(steps=6, batch=2, seq=32, ckpt_every=4, log_every=0,
+                              device=cuda_device)
+    _s, losses_b, _ = train(steps=6, batch=2, seq=32, resume=True, ckpt_mgr=mgr,
+                            log_every=0, device=cuda_device)
+    assert losses_b == pytest.approx(losses_a[-2:], rel=1e-4)
+    assert ops.COUNTS["crc32_batch"].launches > 0
+    assert ops.COUNTS["flash_attention"].launches == 0

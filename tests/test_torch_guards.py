@@ -58,8 +58,11 @@ for name in {port_modules()!r}:
 from repro_torch.configs import get_config
 from repro_torch.core import ServerConfig, make_store
 from repro_torch.launch.serve import serve
+from repro_torch.launch.train import train
 assert serve(batch=1, prompt_len=8, tokens=3, snapshot_every=1, crash_at=1,
              device="cpu").shape == (1, 3)
+assert len(train(steps=2, batch=2, seq=16, ckpt_every=1, log_every=0,
+                 device="cpu")[1]) == 2
 s = make_store("erda-cluster", n_shards=2, replication=2, device="cpu",
                cfg=ServerConfig(device_size=4 << 20, table_capacity=1 << 9,
                                 n_heads=2, region_size=256 << 10,
@@ -145,9 +148,11 @@ def test_default_device_entry_points_raise_without_cuda():
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import checkpoint_manager_for, train
     from repro_torch.models import get_model
-    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.convert import params_from_numpy, train_state_from_numpy
     from repro_torch.serving import ErdaKVPageStore, ServeEngine
+    from repro_torch.train.step import make_train_state
     cfg = ServerConfig(device_size=2 << 20, table_capacity=1 << 8, n_heads=1,
                        region_size=256 << 10, segment_size=32 << 10)
     olmo = get_config("olmo_1b").scaled_down()
@@ -165,7 +170,11 @@ def test_default_device_entry_points_raise_without_cuda():
              lambda: params_from_numpy({"embed": {}, "final_norm": {},
                                         "layers": {}}, olmo),
              lambda: ServeEngine(cpu_model, cpu_params),
-             lambda: serve(batch=1, prompt_len=8, tokens=2)]
+             lambda: serve(batch=1, prompt_len=8, tokens=2),
+             lambda: train(steps=1, batch=2, seq=16),
+             lambda: make_train_state(get_model(olmo)),
+             lambda: train_state_from_numpy({"params": {}}, olmo),
+             lambda: checkpoint_manager_for(1 << 20)]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

@@ -10,7 +10,8 @@ Phases, each printing one JSON line and raising on any mismatch:
   crc32       the CRC-32 kernel against its plain PyTorch version and host
               zlib, exactly (widths at the kernel's chunk boundaries among
               them), with kernel / plain / zlib times, and alone at the
-              serve restore's (3, 25165843) against zlib and the bound;
+              serve restore's (3, 25165843) and the serve_gemma3 restore's
+              (6, 52428820) against zlib and the bound;
   flash_attention  the flash-attention kernel (bf16: tensor-core route;
               f32: CUDA-core route) against its plain PyTorch version at the
               serve path's and olmo_1b's shapes and at the 64-key tile's
@@ -26,13 +27,25 @@ Phases, each printing one JSON line and raising on any mismatch:
               the tokens must be equal and the bf16 prefill must take only
               the flash kernel's tensor-core route; first the model on the
               card against the CPU on a small f32 config;
+  serve_gemma3  gemma3_27b at its full config (62 layers, 5:1 local:global,
+              window 1024; 27.0e9 parameters, random from a seed): 1 request
+              x 1536 prompt tokens past the window, 16 greedy tokens, clean
+              and preempted at token 10 with ring caches restored from the
+              page store — the tokens must be equal, the restore must launch
+              the CRC kernel, and each prefill must launch the flash kernel
+              exactly once a global layer (10), on the tensor-core route at
+              (32, 1536, 128): the local layers' banded attention stays off
+              it; first the local_global (8 layers, 160 tokens) and vlm
+              (pixtral) models on the card against the CPU on small f32
+              configs;
   train       olmo_1b at its full config trained by the port's trainer: 5
               steps of 4 x 2048 tokens with an Erda checkpoint of the whole
               train state (11.8 GB) after step 3, then a fresh trainer
               resumes from it (every shard CRC-verified on the card) and its
               losses must equal the uninterrupted run's; no flash launch;
-              first one train step on the card against the CPU on a small
-              f32 config (loss and every gradient);
+              first one train step on the card against the CPU on small
+              f32 configs, olmo_1b, local_global and pixtral (loss and
+              every gradient);
   kernels     one JSON line with an entry per ported kernel: launches on
               the main paths, agreement with the plain version, time beside
               its bound, the plain version's and the library call's.
@@ -43,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -68,11 +82,29 @@ PLAIN_CRC_WORDS = 1 << 17
 #: the serve restore's CRC batch: 3 cache leaves of 96 MiB (+ 12 bytes of
 #: record header, in words) on one page-store shard
 SERVE_RESTORE_CRC = (3, 25165843)
+#: the serve_gemma3 restore's larger CRC batch: rows padded to the
+#: ['local']['k'] leaf (209,715,200 B) and its headers, in words.  How many
+#: rows a shard's batch has follows the page keys' routing, which Python
+#: salts per process (6 and 4 in one run)
+GEMMA3_RESTORE_CRC = (6, 52428820)
 
 #: the train phase's tolerance on resumed losses (the reference's, in
 #: tests/test_checkpoint.py) and on card-vs-CPU gradients (its model check)
 RESUME_REL = 1e-4
 GRAD_TOL = 3e-5
+
+#: the flash launches one serve_gemma3 prefill makes: one a global layer
+GEMMA3_PREFILL_FLASH = {(32, 1536, 128, "bfloat16"): 10}
+#: the small f32 configs on which the model and train checks hold the card
+#: to the CPU.  local_global at 8 layers has gemma3's two-layer tail, and
+#: 160 tokens pass its 64-token window; pixtral prepends 8 patches
+LOCAL_GLOBAL = dict(arch="gemma3_27b", overrides={"n_layers": 8})
+MODEL_CHECKS = {"olmo_1b": dict(arch="olmo_1b", prompt_len=64),
+                "local_global": dict(LOCAL_GLOBAL, prompt_len=160),
+                "pixtral": dict(arch="pixtral_12b", prompt_len=24)}
+TRAIN_CHECKS = {"olmo_1b": dict(arch="olmo_1b", seqs=(64, 640)),
+                "local_global": dict(LOCAL_GLOBAL, seqs=(160,)),
+                "pixtral": dict(arch="pixtral_12b", seqs=(24,))}
 
 #: olmo_1b widths (src/repro/configs/olmo_1b.py)
 OLMO_1B = dict(d_model=2048, n_kv_heads=16, head_dim=128, d_ff=8192,
@@ -80,11 +112,14 @@ OLMO_1B = dict(d_model=2048, n_kv_heads=16, head_dim=128, d_ff=8192,
 
 #: flash-attention shapes: (BH, S, hd), dtype, causal.  The first is the
 #: serve phase's prefill (4 requests x 16 heads, 256 tokens); (32, 2048, 128)
-#: is olmo_1b's full context; S = 64, 65, 100 hold the bf16 kernel's 64-key
-#: tile edge and ragged tail against the plain version
+#: is olmo_1b's full context; (32, 1536, 128) a gemma3_27b global layer in
+#: the serve_gemma3 prefill (1 request x 32 heads, KV repeated 16 -> 32);
+#: S = 64, 65, 100 hold the bf16 kernel's 64-key tile edge and ragged tail
+#: against the plain version
 FLASH_SHAPES = [((64, 256, 128), "bfloat16", True),
                 ((64, 512, 128), "bfloat16", True),
                 ((32, 2048, 128), "bfloat16", True),
+                ((32, 1536, 128), "bfloat16", True),
                 ((16, 64, 128), "bfloat16", True),
                 ((16, 65, 128), "bfloat16", True),
                 ((16, 100, 128), "bfloat16", False),
@@ -270,18 +305,19 @@ def crc_case(n: int, w: int, seed: int, dev, *, plain: bool = True) -> dict:
 
 
 def phase_crc32(dev, shapes=None, *, long=(120, 1048581),
-                serve=SERVE_RESTORE_CRC) -> list:
+                serve=(SERVE_RESTORE_CRC, GEMMA3_RESTORE_CRC)) -> list:
     """Kernel vs plain version vs zlib, exactly, at the listed shapes (the
     chunk-boundary widths among them); then 4 MiB records (a checkpoint
-    shard) and the serve restore's batch against zlib only — the plain
-    version's per-byte loop would take minutes to hours at those widths."""
+    shard) and the serve and serve_gemma3 restores' batches against zlib
+    only — the plain version's per-byte loop would take minutes to hours at
+    those widths."""
     from repro_torch.kernels.crc32 import CHUNK_UNITS
     c = 4 * CHUNK_UNITS  # words of one chunk of the kernel's first pass
     shapes = shapes or [(1, 1), (1000, 3), (512, 256), (2048, 16400),
                         (7, c - 1), (7, c), (7, c + 1)]
     out = [crc_case(n, w, seed=i, dev=dev) for i, (n, w) in enumerate(shapes)]
     return out + [crc_case(n, w, seed=99 + i, dev=dev, plain=False)
-                  for i, (n, w) in enumerate((long, serve))]
+                  for i, (n, w) in enumerate((long, *serve))]
 
 
 def flash_case(shape, dtype: str, causal: bool, seed: int, dev) -> dict:
@@ -547,13 +583,13 @@ def busy_share(fn, dev, top: int = 0) -> dict:
     return out
 
 
-def run_model_check(dev, *, arch: str = "olmo_1b", batch: int = 2,
+def run_model_check(dev, *, arch: str = "olmo_1b", overrides=None, batch: int = 2,
                     prompt_len: int = 64, steps: int = 4) -> dict:
     """The model on ``dev`` against the CPU's plain path on the same weights
-    (``arch``'s scaled-down config in float32, weights drawn on the CPU):
-    prefill logits, every cache leaf and ``steps`` decode steps' logits
-    within 3e-5, the tolerance the CPU tests hold the port to against the
-    JAX package."""
+    (``arch``'s scaled-down config with ``overrides``, in float32, weights
+    drawn on the CPU): prefill logits, every cache leaf and ``steps``
+    decode steps' logits within 3e-5, the tolerance the CPU tests hold the
+    port to against the JAX package."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -561,7 +597,9 @@ def run_model_check(dev, *, arch: str = "olmo_1b", batch: int = 2,
     from repro_torch.models import get_model
     from repro_torch.tree import flatten_with_path, map_leaves
 
-    cfg = dataclasses.replace(get_config(arch).scaled_down(), dtype="float32")
+    overrides = overrides or {}
+    cfg = dataclasses.replace(get_config(arch).scaled_down(), dtype="float32",
+                              **overrides)
     cpu = torch.device("cpu")
     params = get_model(cfg, cpu).init(0)
     prompts = make_batch(cfg, ShapeConfig("check", prompt_len, batch, "prefill"))
@@ -592,19 +630,22 @@ def run_model_check(dev, *, arch: str = "olmo_1b", batch: int = 2,
         close(la, lb, f"step {i} logits")
         for (path, a), (_q, b) in zip(flatten_with_path(ca), flatten_with_path(cb)):
             close(a, b, f"step {i} cache {path}")
-    return {"config": f"{arch} scaled_down float32", "batch": batch,
+    return {"config": f"{arch} scaled_down float32 {overrides}",
+            "attn_pattern": cfg.attn_pattern, "family": cfg.family, "batch": batch,
             "prompt_len": prompt_len, "decode_steps": steps,
             "max_abs_err": worst, "tol": 3e-5}
 
 
 def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
               tokens: int = 16, snapshot_every: int = 8, crash_at: int = 10,
-              seed: int = 0) -> dict:
+              seed: int = 0, flash_per_prefill=None) -> dict:
     """The serving engine at ``cfg`` (default: olmo_1b at its full config):
     a clean run, then a run preempted after ``crash_at`` decode steps that
     restores its cache from the page store; each engine has its own page
-    store.  The tokens must be equal, and on the card the prefill must have
-    launched the flash kernel and the restore the CRC kernel."""
+    store (``launch.serve.page_store_for``).  The tokens must be equal, and
+    on the card the prefill must have launched the flash kernel — exactly
+    ``flash_per_prefill`` ({launch key: count}) a prefill where given — and
+    the restore the CRC kernel."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -618,6 +659,9 @@ def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
     from repro_torch.tree import flatten_with_path
 
     cfg = cfg or get_config("olmo_1b")
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
     model = get_model(cfg, dev)
     params = model.init(seed)
     n_params = sum(t.numel() for _p, t in flatten_with_path(params))
@@ -631,20 +675,26 @@ def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
         check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
         token = torch.argmax(logits, -1).to(torch.int32)
         model.decode_step(params, cache, token)
-        busy = {"prefill": busy_share(lambda: model.prefill(params, prompts), dev),
+        busy = {"prefill": busy_share(lambda: model.prefill(params, prompts), dev, top=8),
                 "decode_step": busy_share(
-                    lambda: model.decode_step(params, cache, token), dev)}
-        leaf_bytes = max(t.numel() * t.element_size()
-                         for _p, t in flatten_with_path(cache))
+                    lambda: model.decode_step(params, cache, token), dev, top=8)}
+        leaf_bytes, leaf_path = max(((t.numel() * t.element_size(), p)
+                                     for p, t in flatten_with_path(cache)),
+                                    key=lambda leaf: leaf[0])
         del logits, cache
 
     names = ("prefill_ms", "decode_ms", "snapshot_ms", "restore_ms")
     times = {run: {n: [] for n in names} for run in ("clean", "preempted")}
+    geometry = {}
 
     def engine(sinks):
+        pages = page_store_for(cfg, batch, prompt_len, tokens, snapshot_every, dev)
+        shard = pages.store.cluster.cfg
+        geometry.update(n_shards=len(pages.store.cluster.groups),
+                        device_size=shard.device_size,
+                        segment_size=shard.segment_size, n_heads=shard.n_heads)
         eng = ServeEngine(model, params, snapshot_every=snapshot_every, device=dev,
-                          page_store=page_store_for(cfg, batch, prompt_len, tokens,
-                                                    snapshot_every, dev))
+                          page_store=pages)
         eng._prefill = timed(eng._prefill, sinks["prefill_ms"], dev)
         eng._decode = timed(eng._decode, sinks["decode_ms"], dev)
         eng.pages.snapshot_cache = timed(eng.pages.snapshot_cache,
@@ -669,12 +719,20 @@ def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
     check(all(n == 0 for r, n in routes.items() if r != want_route),
           f"the {cfg.dtype} prefill took another flash route: {routes}")
     check(dev.type == "cpu" or crc.launches > 0, "restore launched no CRC kernel")
+    prefills = len(times["clean"]["prefill_ms"]) + len(times["preempted"]["prefill_ms"])
+    if cuda and flash_per_prefill is not None:
+        want = {k: n * prefills for k, n in flash_per_prefill.items()}
+        check(dict(flash.shapes) == want,
+              f"flash launches {dict(flash.shapes)} over {prefills} prefills, want {want}")
     mean = lambda xs: sum(xs) / len(xs)
     out = {"config": cfg.name, "params": n_params, "dtype": cfg.dtype,
+           "attn_pattern": cfg.attn_pattern, "window": cfg.window,
            "batch": batch, "prompt_len": prompt_len, "tokens": tokens,
            "snapshot_every": snapshot_every, "crash_at": crash_at,
-           "largest_cache_leaf_bytes": leaf_bytes, "tokens_equal": True,
-           "first_tokens": clean[0].tolist(), "profiled": busy}
+           "largest_cache_leaf_bytes": leaf_bytes, "largest_cache_leaf": leaf_path,
+           "page_store": geometry, "tokens_equal": True, "prefills": prefills,
+           "first_tokens": clean[0].tolist(), "profiled": busy,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev) if cuda else None}
     for run, t in times.items():
         out[run] = {"prefill_ms": t["prefill_ms"][0],
                     "decode_ms_per_token": mean(t["decode_ms"]),
@@ -689,13 +747,38 @@ def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
     return out
 
 
-def run_train_check(dev, *, arch: str = "olmo_1b", batch: int = 2,
+def run_serve_gemma3(dev, *, cfg=None, prompt_len: int = 1536, **kwargs) -> dict:
+    """``run_serve`` at gemma3_27b's full config (default), 1 request x
+    ``prompt_len`` tokens: every local layer runs banded attention, and on
+    the card each prefill must launch the flash kernel exactly
+    ``GEMMA3_PREFILL_FLASH``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    full = cfg is None
+    cfg = cfg or get_config("gemma3_27b")
+    out = run_serve(dev, cfg=cfg, batch=1, prompt_len=prompt_len,
+                    flash_per_prefill=GEMMA3_PREFILL_FLASH, **kwargs)
+    if dev.type == "cuda" and full:
+        # the crc32 phase holds the kernel to zlib at this width
+        widest = max(w for _n, w in ops.COUNTS["crc32_batch"].shapes)
+        check(widest == GEMMA3_RESTORE_CRC[1],
+              f"restore CRC rows of {widest} words, the crc32 phase checks "
+              f"{GEMMA3_RESTORE_CRC[1]}")
+    # the config's count leaves out the norms' scales: two a layer, one final
+    norms = (2 * cfg.n_layers + 1) * cfg.d_model if cfg.norm != "nonparam_ln" else 0
+    check(out["params"] == cfg.param_count() + norms,
+          f"{out['params']} parameters, the config counts {cfg.param_count()} + {norms}")
+    return dict(out, config_param_count=cfg.param_count())
+
+
+def run_train_check(dev, *, arch: str = "olmo_1b", overrides=None, batch: int = 2,
                     seqs=(64, 640)) -> dict:
     """One train step on ``dev`` against the CPU on the same weights
-    (``arch``'s scaled-down config in float32, every layer rematerialized as
-    at the full config, weights drawn on the CPU): the loss and every
-    gradient leaf within ``GRAD_TOL``, and the trainer step's loss and grad
-    norm.  S = 64 takes dense attention, 640 chunked (5 KV chunks of 128)."""
+    (``arch``'s scaled-down config with ``overrides``, in float32, every
+    layer rematerialized as at the full config, weights drawn on the CPU):
+    the loss and every gradient leaf within ``GRAD_TOL``, and the trainer
+    step's loss and grad norm.  For olmo_1b S = 64 takes dense attention,
+    640 chunked (5 KV chunks of 128); past a window, banded attention."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -705,8 +788,9 @@ def run_train_check(dev, *, arch: str = "olmo_1b", batch: int = 2,
     from repro_torch.train.step import loss_and_grads, make_train_state
     from repro_torch.tree import flatten_with_path, map_leaves
 
+    overrides = overrides or {}
     cfg = dataclasses.replace(get_config(arch).scaled_down(), dtype="float32",
-                              remat="full", attn_chunk=128)
+                              remat="full", attn_chunk=128, **overrides)
     cpu = torch.device("cpu")
     state = make_train_state(get_model(cfg, cpu), 0)
     worst = 0.0
@@ -736,7 +820,8 @@ def run_train_check(dev, *, arch: str = "olmo_1b", batch: int = 2,
         close(ma["grad_norm"], mb["grad_norm"], f"S={seq} grad norm")
         for (path, a), (_q, b) in zip(flatten_with_path(ga), flatten_with_path(gb)):
             close(a, b, f"S={seq} grad {path}")
-    return {"config": f"{arch} scaled_down float32 remat=full attn_chunk=128",
+    return {"config": f"{arch} scaled_down float32 remat=full attn_chunk=128 {overrides}",
+            "attn_pattern": cfg.attn_pattern, "family": cfg.family,
             "batch": batch, "seqs": list(seqs), "max_abs_err": worst, "tol": GRAD_TOL}
 
 
@@ -885,7 +970,7 @@ def crc_entry(dev, launches: int, shapes: dict) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="device,crc32,flash_attention,kv_pages,"
-                    "checkpoint,serve,train,kernels")
+                    "checkpoint,serve,serve_gemma3,train,kernels")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     import torch
@@ -911,14 +996,21 @@ def main(argv=None) -> int:
     launches = {name: 0 for name in ops.COUNTS}
     shapes = {name: {} for name in ops.COUNTS}
     runs = [("kv_pages", run_kv_pages), ("checkpoint", run_checkpoint),
-            ("serve", run_serve), ("train", run_train)]
-    checks = {"serve": ("model_check", run_model_check),
-              "train": ("train_check", run_train_check)}
+            ("serve", run_serve), ("serve_gemma3", run_serve_gemma3),
+            ("train", run_train)]
+    # the card against the CPU on small f32 configs, before the phase
+    model_check = lambda label: ("model_check", label, run_model_check, MODEL_CHECKS[label])
+    train_check = lambda label: ("train_check", label, run_train_check, TRAIN_CHECKS[label])
+    checks = {"serve": [model_check("olmo_1b")],
+              "serve_gemma3": [model_check("local_global"), model_check("pixtral")],
+              "train": [train_check(label) for label in TRAIN_CHECKS]}
     for name, run in runs:
         if name not in phases:
             continue
-        if name in checks:
-            emit(checks[name][0], **checks[name][1](dev))
+        gc.collect()  # what earlier phases left on the card goes back
+        torch.cuda.empty_cache()
+        for check_name, label, check_fn, kwargs in checks.get(name, []):
+            emit(check_name, label=label, **check_fn(dev, **kwargs))
         t0 = time.perf_counter()
         res = run(dev)
         emit(name, card=info["nvidia_smi"], phase_s=time.perf_counter() - t0, **res)

@@ -7,6 +7,7 @@ source, its bound and its design notes are in ``csrc/flash_attention.cu``.
 
 Layout: q, k, v and the output are (BH, S, hd), float32 or bfloat16, with
 hd in ``HEAD_DIMS``; ``ops.flash_attention`` folds (B, S, H, hd) into it.
+Another head dim (gemma3_12b's 256) raises ``NotImplementedError``.
 
 Two routes, by dtype: bfloat16 runs on the tensor cores (wgmma, TMA), float32
 on the CUDA cores (the tolerance of the float32 path rules out TF32).  Each
@@ -59,11 +60,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the kernel on CUDA tensors on the current stream; (BH, S, hd)
     -> (BH, S, hd) in q's dtype."""
     check_qkv(q, k, v)
+    if q.shape[-1] not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"the flash kernel is built for head_dim in {HEAD_DIMS}, got "
+            f"{q.shape[-1]}: a route for it is queued in ROADMAP.md (Queue 2)")
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_cuda needs q, k, v on one CUDA device")
-    if q.dtype not in DTYPE_CODES or q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes float32/bfloat16 and head_dim in "
-                         f"{HEAD_DIMS}, got {q.dtype} and {q.shape[-1]}")
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"the kernel takes float32/bfloat16, got {q.dtype}")
     q, k, v = build.aligned16(q), build.aligned16(k), build.aligned16(v)
     bh, s, hd = q.shape
     out = torch.empty_like(q)

@@ -4,12 +4,17 @@ the port of ``repro/launch/serve.py``.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda --scale full
 
-Weights are random, drawn from seed 0.  The page store is sized so that one
-segment holds a whole decode-cache leaf (``serving.page_shard_config``).
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cuda --scale full \
+        --arch gemma3_27b --batch 1 --prompt-len 1536
+
+Weights are random, drawn from seed 0.  The page store is sized from the
+decode cache's leaves (``page_store_for``): a segment holds the largest, and
+each shard every snapshot of the run, under its 31-bit offsets.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 
@@ -20,22 +25,33 @@ from repro_torch.core import make_store
 from repro_torch.data import make_batch
 from repro_torch.launch.train import scale_config
 from repro_torch.models import get_model
-from repro_torch.models.layers.basic import dtype_of
-from repro_torch.models.transformer import CACHE_PAD
+from repro_torch.models import transformer
 from repro_torch.serving import ErdaKVPageStore, ServeEngine, page_shard_config
+from repro_torch.tree import flatten_with_path
+
+
+def snapshot_pages(cfg, batch: int, prompt_len: int, tokens: int):
+    """(name, bytes) of every page a snapshot of a ``batch`` x
+    ``prompt_len`` run writes, in order: the decode cache's leaves, from
+    the cache tree on the meta device, then the tokens page.  Prefill
+    caches carry no int8 scales, so the tree is ``init_cache``'s without
+    ``cache_quant``; a vlm prompt also holds the patch embeddings."""
+    seq = prompt_len + (cfg.n_patches if cfg.family == "vlm" else 0)
+    tree = transformer.init_cache(dataclasses.replace(cfg, cache_quant=False),
+                                  batch, seq, device="meta")
+    return [(path, leaf.numel() * leaf.element_size())
+            for path, leaf in flatten_with_path(tree)] + [("__tokens__", 4 * batch * tokens)]
 
 
 def page_store_for(cfg, batch: int, prompt_len: int, tokens: int,
                    snapshot_every: int, device) -> ErdaKVPageStore:
-    """A 2-shard page store whose segments hold one cache leaf, with room for
-    every snapshot a run of ``tokens`` tokens writes (one more after a
-    recovery): four cache leaves and the tokens page each."""
-    itemsize = torch.tensor([], dtype=dtype_of(cfg)).element_size()
-    leaf = (cfg.n_layers * batch * (prompt_len + CACHE_PAD) * cfg.n_kv_heads
-            * cfg.head_dim * itemsize)
-    versions = (tokens // snapshot_every + 2) if snapshot_every else 0
-    cfg_shard = page_shard_config(leaf, 5 * versions)
-    return ErdaKVPageStore(make_store("erda-cluster", n_shards=2, cfg=cfg_shard,
+    """A 2-shard page store for one run of ``serve``'s engine, sized from
+    the cache's own leaves (``serving.page_shard_config``): each shard holds
+    every snapshot a run of ``tokens`` tokens writes, ceil((tokens - 1) /
+    snapshot_every), and one more after a recovery."""
+    versions = -(-(tokens - 1) // snapshot_every) + 1 if snapshot_every else 1
+    shard = page_shard_config(snapshot_pages(cfg, batch, prompt_len, tokens), versions)
+    return ErdaKVPageStore(make_store("erda-cluster", n_shards=2, cfg=shard,
                                       device=device), device=device)
 
 

@@ -1,13 +1,15 @@
 """The JAX package's model and train-state trees, and the port's.
 
-The reference keeps each layer's leaves stacked along a leading
-(n_layers, ...) axis for its scan; the port keeps a list of per-layer dicts
-under ``"layers"``.  ``to_reference_tree`` stacks the port's lists into the
-reference's leaves and ``from_reference_tree`` splits them back, so a
-checkpoint of the port's train state has the reference's leaf paths
-(``['opt']['m']['layers']['attn']['wq']``) and either package resumes what
-the other saved.  Weights keep their (d_in, d_out) layout (both packages
-apply them as ``x @ W``).
+The reference keeps each layer's leaves stacked along leading axes for its
+scans; the port keeps lists of per-layer dicts: ``"layers"``,
+``"global_layers"`` and ``"tail_local"`` are lists of layers, (n, ...) in
+the reference, and local_global's ``"local_layers"`` a list of groups of
+layers, (G, local_per_global, ...).  ``to_reference_tree`` stacks the
+port's lists into the reference's leaves and ``from_reference_tree`` splits
+them back, so a checkpoint of the port's train state has the reference's
+leaf paths (``['opt']['m']['local_layers']['attn']['wq']``) and either
+package resumes what the other saved.  Weights keep their (d_in, d_out)
+layout (both packages apply them as ``x @ W``).
 
 ``params_from_numpy(jax.tree.map(np.asarray, params), cfg, device)`` and
 ``train_state_from_numpy`` take the JAX package's trees as numpy arrays;
@@ -26,38 +28,44 @@ from repro_torch.models.transformer import check_supported
 from repro_torch.tree import flatten_with_path, map_leaves, unflatten
 
 
+#: key of a stack of layers -> the list levels it has in the port (the
+#: leading axes its leaves have in the reference)
+LAYER_STACKS = {"layers": 1, "global_layers": 1, "tail_local": 1, "local_layers": 2}
+
+
+def _stack(sub, depth: int):
+    if depth == 0:
+        return sub
+    items = [_stack(item, depth - 1) for item in sub]
+    per_item = [[leaf for _p, leaf in flatten_with_path(item)] for item in items]
+    return unflatten(items[0], [torch.stack(ts) for ts in zip(*per_item)])
+
+
+def _split(sub, depth: int):
+    if depth == 0:
+        return sub
+    leaves = [leaf for _p, leaf in flatten_with_path(sub)]
+    n = leaves[0].shape[0]
+    return [_split(unflatten(sub, [t[i] for t in leaves]), depth - 1) for i in range(n)]
+
+
 def to_reference_tree(tree):
-    """``tree`` with every ``"layers"`` list of per-layer trees stacked into
-    one tree of (n_layers, ...) tensors."""
+    """``tree`` with every stack of layers (``LAYER_STACKS``) stacked into
+    one tree of (n, ...) or (G, local_per_global, ...) tensors."""
     if not isinstance(tree, dict):
         return tree
-    out = {}
-    for key, sub in tree.items():
-        if key == "layers":
-            per_layer = [[leaf for _p, leaf in flatten_with_path(layer)] for layer in sub]
-            sub = unflatten(sub[0], [torch.stack(ts) for ts in zip(*per_layer)])
-        else:
-            sub = to_reference_tree(sub)
-        out[key] = sub
-    return out
+    return {key: _stack(sub, LAYER_STACKS[key]) if key in LAYER_STACKS
+            else to_reference_tree(sub) for key, sub in tree.items()}
 
 
 def from_reference_tree(tree):
-    """The inverse of ``to_reference_tree``: every ``"layers"`` tree of
-    (n_layers, ...) tensors split into a list of per-layer trees, each leaf
-    its own copy."""
+    """The inverse of ``to_reference_tree``: every stack of layers split
+    into (lists of) per-layer trees, each leaf its own copy."""
     if not isinstance(tree, dict):
         return tree
-    out = {}
-    for key, sub in tree.items():
-        if key == "layers":
-            leaves = [leaf for _p, leaf in flatten_with_path(sub)]
-            n = leaves[0].shape[0]
-            sub = [unflatten(sub, [t[i].clone() for t in leaves]) for i in range(n)]
-        else:
-            sub = from_reference_tree(sub)
-        out[key] = sub
-    return out
+    return {key: map_leaves(torch.clone, _split(sub, LAYER_STACKS[key]))
+            if key in LAYER_STACKS else from_reference_tree(sub)
+            for key, sub in tree.items()}
 
 
 def train_state_from_numpy(tree: Dict, cfg, device="cuda") -> Dict:

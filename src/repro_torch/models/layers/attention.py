@@ -1,5 +1,6 @@
-"""Attention: GQA projections, chunked online-softmax attention, dense
-attention, and single-token decode against a KV cache — the port of
+"""Attention: GQA projections, chunked online-softmax attention, banded
+(sliding-window) attention, dense attention, and single-token decode against
+full or ring-buffer KV caches — the port of
 ``repro/models/layers/attention.py``.
 
 These are the plain versions, in float32 inside and cast back, and
@@ -8,11 +9,12 @@ serving's prefill — training's attention (the reference computes it outside
 any kernel too) and decode attention, whose products stay
 ``torch.matmul``/``einsum`` as the reference left them to XLA.  Serving's
 prefill attention goes through the flash kernel on the card
-(``models.transformer.block_fwd``).  The reference's sharding hints
-(``constrain_batch*``) are no-ops without a mesh and are dropped.  What
-only other families use comes with their slices: banded (sliding-window)
-attention, ring-buffer cache slots and decode windows (swa, local_global),
-cross-attention inputs (encdec), query offsets.
+(``models.transformer.block_fwd``), except a window layer longer than its
+window, which runs ``banded_attention`` here on every device (the
+reference's kernel has no window either).  The reference's sharding hints
+(``constrain_batch*``) are no-ops without a mesh and are dropped.
+Cross-attention inputs (encdec) and query offsets, which only other
+families use, come with their slices.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import math
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.layers.basic import apply_rope, dense_init, dtype_of, remat
 
@@ -96,6 +99,43 @@ def chunked_attention(q, k, v, cfg, *, causal: bool = True) -> torch.Tensor:
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+# ------------------------------------------------------------ banded (SWA) attn
+def _band_chunk(qi, kj, vj, start: int, window: int, scale: float):
+    """One query chunk of banded attention: qi (B,cq,KV,G,hd) against the
+    band kj, vj (B,W+cq,KV,hd) that starts W tokens before it."""
+    cq = qi.shape[1]
+    s = torch.einsum("bqkgh,bckh->bqkgc", qi.float() * scale, kj.float())
+    q_pos = start + torch.arange(cq, device=qi.device)
+    kv_pos = start - window + torch.arange(window + cq, device=qi.device)
+    diff = q_pos[:, None] - kv_pos[None, :]
+    mask = (diff >= 0) & (diff < window) & (kv_pos[None, :] >= 0)
+    s = s.masked_fill(~mask[None, :, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqkgc,bckh->bqkgh", p, vj.float())
+
+
+def banded_attention(q, k, v, cfg, *, window: int) -> torch.Tensor:
+    """Sliding-window causal attention: each query chunk sees [start-W,
+    chunk_end), so compute is O(S·(W+cq)).  q:(B,S,H,hd), k/v:(B,S,KV,hd).
+    K/V are padded in front by W zeros so every band is in range; each
+    chunk is rematerialized in the backward pass, as in
+    ``chunked_attention``."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    cq = min(cfg.attn_chunk, S, max(window, 128))
+    if S % cq:
+        cq = math.gcd(S, cq)
+    W = window
+    scale = 1.0 / math.sqrt(hd)
+    kp = F.pad(k, (0, 0, 0, 0, W, 0))
+    vp = F.pad(v, (0, 0, 0, 0, W, 0))
+    qg = _group(q, KV)
+    outs = [remat(_band_chunk, qg[:, start:start + cq], kp[:, start:start + W + cq],
+                  vp[:, start:start + W + cq], start, W, scale)
+            for start in range(0, S, cq)]
+    return torch.cat(outs, dim=1).reshape(B, S, H, hd).to(q.dtype)
+
+
 # ------------------------------------------------------------------ full (enc)
 def full_attention(q, k, v, *, causal: bool) -> torch.Tensor:
     """Small-sequence dense attention."""
@@ -112,27 +152,32 @@ def full_attention(q, k, v, *, causal: bool) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------- decode
-def decode_attention(q, k_cache, v_cache, kv_positions, pos):
+def decode_attention(q, k_cache, v_cache, kv_positions, pos, *, window: int = 0):
     """One-token attention against a cache.
     q: (B,1,H,hd); caches: (B,C,KV,hd); kv_positions: (C,) absolute positions
-    (-1 = empty slot); pos: the current position (0-d tensor or int)."""
+    (-1 = empty slot); pos: the current position (0-d tensor or int);
+    ``window`` > 0 also masks positions at or before pos - window."""
     B, _, H, hd = q.shape
     KV = k_cache.shape[2]
     qg = _group(q, KV).float() / math.sqrt(hd)
     s = torch.einsum("bqkgh,bckh->bqkgc", qg, k_cache.float())
     valid = (kv_positions >= 0) & (kv_positions <= pos)
+    if window:
+        valid &= kv_positions > pos - window
     s = s.masked_fill(~valid[None, None, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bqkgc,bckh->bqkgh", p, v_cache.float())
     return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
-def cache_update(k_cache, v_cache, kv_positions, k_new, v_new, pos):
-    """Insert one token's k/v at `pos` (clipped into the cache).  Out of
-    place, like the reference: returns new tensors."""
+def cache_update(k_cache, v_cache, kv_positions, k_new, v_new, pos, *,
+                 ring: int = 0):
+    """Insert one token's k/v at `pos`: at slot pos % ring in a ring buffer
+    (ring > 0), else at pos clipped into the cache.  Out of place, like the
+    reference: returns new tensors."""
     C = k_cache.shape[1]
     pos = torch.as_tensor(pos, device=k_cache.device)
-    slot = pos.clamp(0, C - 1).reshape(1).long()
+    slot = (torch.remainder(pos, ring) if ring else pos.clamp(0, C - 1)).reshape(1).long()
     k_cache = k_cache.index_copy(1, slot, k_new.to(k_cache.dtype))
     v_cache = v_cache.index_copy(1, slot, v_new.to(v_cache.dtype))
     kv_positions = kv_positions.index_copy(

@@ -1,32 +1,48 @@
-"""Decoder-only transformer LM, dense family with full attention — the port
-of ``repro/models/transformer.py``'s serving path (olmo_1b and its kin).
+"""Decoder-only transformer LM: the dense, swa and local_global attention
+patterns and the vlm family — the port of ``repro/models/transformer.py``
+(everything but its MoE layers).
 
-Parameters: ``{"embed": {"table"[, "unembed"]}, "final_norm": {...},
-"layers": [block params] * n_layers}`` — the reference's tree with the
-stacked (L, ...) layer leaves split per layer, run by a plain loop (the
-reference's ``scan_layers``).
+Parameters are the reference's tree with its stacked layer leaves split
+into per-layer lists, run by plain loops (the reference's ``scan_layers``):
+``{"embed": {"table"[, "unembed"]}, "final_norm": {...}}`` plus
+``"layers": [block] * n_layers`` (full, swa), or for local_global
+``"local_layers": [[block] * local_per_global] * G``, ``"global_layers":
+[block] * G`` and, when ``n_layers`` leaves a remainder, ``"tail_local":
+[block] * rem`` (gemma3_27b: 62 = 10 x 6 + 2).  ``models.convert`` stacks
+them into the reference's (G, local_per_global, ...), (G, ...) and
+(rem, ...) leaves.
 
 Step functions:
-  train_loss(params, batch)           — next-token CE
+  train_loss(params, batch)           — next-token CE (text positions only
+                                        for vlm, whose patch embeddings are
+                                        prepended to the tokens')
   prefill(params, batch)              — (last_logits (B,1,V), cache)
   decode_step(params, cache, token)   — one token against the cache
-The cache is the reference's tree, ``{"pos": 0-d int32, "full": {"k":
-(L,B,C,KV,hd), "v": ..., "kv_pos": (L,C) int32}}`` with C = S + CACHE_PAD, so
-its leaves flatten to the same paths (and page keys) as the reference's.
+The cache is the reference's tree, so its leaves flatten to the same paths
+(and page keys): ``{"pos": 0-d int32}`` plus ``"full": {"k": (L,B,C,KV,hd),
+"v", "kv_pos": (L,C)}`` with C = S + CACHE_PAD (full), ``"win"``: W-slot
+ring buffers (L,B,W,KV,hd) with (L,W) positions (swa), or ``"local"``
+(G,lpg,B,W,KV,hd), ``"full"`` (G,B,C,KV,hd) and ``"tail"`` (rem,B,W,KV,hd)
+(local_global).  ``init_cache`` with ``cache_quant`` makes the full caches
+int8 with bf16 per-(token, head) scales; ring caches stay in the model's
+dtype and prefill caches carry no scales, so decode quantizes only a cache
+``init_cache`` made, as the reference does.
 
 On a CUDA tensor, prefill attention runs the flash kernel
-(``kernels.ops.flash_attention``) at every sequence length; on the CPU it is
-the reference's plain branch (dense up to 512 tokens, chunked above).
+(``kernels.ops.flash_attention``), except in a window layer longer than
+its window, which runs ``banded_attention`` on every device; on the CPU it
+is the reference's plain branch (dense up to 512 tokens, chunked above).
 ``train_loss`` always takes the plain branch: the flash kernel has no
 backward (nor has the reference's), and its wrapper refuses inputs that
 require a gradient.  With ``cfg.remat == "full"`` each layer is
-rematerialized in the backward pass, as the reference's scan body is.  Ring
-(sliding-window) and int8 caches, MoE, vlm and local_global are not ported
-yet: ``check_supported`` raises ``NotImplementedError`` for them.
+rematerialized in the backward pass, as the reference's scan body is, and
+for local_global the whole group as well.  MoE and the non-transformer
+families are not ported yet: ``check_supported`` raises
+``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,13 +55,10 @@ CACHE_PAD = 128  # decode caches get S + CACHE_PAD capacity
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
+    """Raise ``NotImplementedError`` for what the port does not have yet."""
     missing = [what for what, bad in (
-        (f"family {cfg.family!r}", cfg.family != "dense"),
-        (f"attn_pattern {cfg.attn_pattern!r} (ring caches)",
-         cfg.attn_pattern != "full"),
-        ("MoE layers", bool(cfg.n_experts)),
-        ("the int8 KV cache", cfg.cache_quant)) if bad]
+        (f"family {cfg.family!r}", cfg.family not in ("dense", "moe", "vlm")),
+        ("MoE layers", bool(cfg.n_experts))) if bad]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported to repro_torch yet "
@@ -65,13 +78,17 @@ def _mix(cfg, p, x, attn_out):
     return x + B.apply_mlp(p["mlp"], h, cfg)
 
 
-def block_fwd(cfg, p, x, positions, *, flash: bool) -> Tuple[torch.Tensor, Tuple]:
-    """One layer over the whole sequence; returns (x, (k, v)).  ``flash``
-    sends the attention to the flash kernel, else to the plain branch."""
+def block_fwd(cfg, p, x, positions, kind: str, *, flash: bool) -> Tuple[torch.Tensor, Tuple]:
+    """One layer over the whole sequence; returns (x, (k, v)).  kind:
+    'full' | 'window'.  A window layer longer than its window runs banded
+    attention; otherwise ``flash`` sends the attention to the flash kernel
+    (a causal mask equals the window's there), else to the plain branch."""
     B_, S, _ = x.shape
     h = B.apply_norm(p["ln1"], x, cfg.norm)
     q, k, v = A.qkv(p["attn"], h, cfg, positions)
-    if flash:
+    if kind == "window" and cfg.window and S > cfg.window:
+        o = A.banded_attention(q, k, v, cfg, window=cfg.window)
+    elif flash:
         G = cfg.n_heads // cfg.n_kv_heads
         kr, vr = (k, v) if G == 1 else (k.repeat_interleave(G, dim=2),
                                         v.repeat_interleave(G, dim=2))
@@ -84,24 +101,77 @@ def block_fwd(cfg, p, x, positions, *, flash: bool) -> Tuple[torch.Tensor, Tuple
     return _mix(cfg, p, x, o), (k, v)
 
 
-def block_decode(cfg, p, x, lcache, pos):
-    """x: (B,1,d); lcache: dict(k, v, kv_pos) for this layer."""
+def _quantize_kv(t):
+    """Per-(token, head) symmetric int8: (B,S,KV,hd) -> (int8, bf16 scale)."""
+    tf = t.float()
+    scale = torch.clamp(tf.abs().amax(-1, keepdim=True) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(tf / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def block_decode(cfg, p, x, lcache, pos, kind: str):
+    """x: (B,1,d); lcache: dict(k, v, kv_pos[, k_scale, v_scale]) for this
+    layer, a ring buffer when kind == 'window'."""
     B_ = x.shape[0]
     h = B.apply_norm(p["ln1"], x, cfg.norm)
     q, k, v = A.qkv(p["attn"], h, cfg, pos.reshape(1))
-    kc, vc, kp = A.cache_update(lcache["k"], lcache["v"], lcache["kv_pos"],
-                                k, v, pos)
-    o = A.decode_attention(q, kc, vc, kp, pos)
+    ring = lcache["k"].shape[1] if kind == "window" else 0
+    window = cfg.window if kind == "window" else 0
+    if cfg.cache_quant and "k_scale" in lcache:
+        kq, ks_new = _quantize_kv(k)
+        vq, vs_new = _quantize_kv(v)
+        kc, vc, kp = A.cache_update(lcache["k"], lcache["v"], lcache["kv_pos"],
+                                    kq, vq, pos, ring=ring)
+        ks, vs, _ = A.cache_update(lcache["k_scale"], lcache["v_scale"],
+                                   lcache["kv_pos"], ks_new, vs_new, pos, ring=ring)
+        # the product in float32, as XLA forms the reference's bf16 one
+        # (excess precision): one rounding, to q's dtype
+        kd = (kc.float() * ks.float()).to(q.dtype)
+        vd = (vc.float() * vs.float()).to(q.dtype)
+        o = A.decode_attention(q, kd, vd, kp, pos, window=window)
+        new_cache = {"k": kc, "v": vc, "kv_pos": kp, "k_scale": ks, "v_scale": vs}
+    else:
+        kc, vc, kp = A.cache_update(lcache["k"], lcache["v"], lcache["kv_pos"],
+                                    k, v, pos, ring=ring)
+        o = A.decode_attention(q, kc, vc, kp, pos, window=window)
+        new_cache = {"k": kc, "v": vc, "kv_pos": kp}
     o = o.reshape(B_, 1, cfg.q_dim)
-    return _mix(cfg, p, x, o), {"k": kc, "v": vc, "kv_pos": kp}
+    return _mix(cfg, p, x, o), new_cache
+
+
+# ----------------------------------------------------------------- layer plans
+def _groups(cfg) -> Tuple[int, int]:
+    """local_global: (G whole groups, rem trailing local layers)."""
+    g = cfg.local_per_global + 1
+    G = cfg.n_layers // g
+    return G, cfg.n_layers - G * g
+
+
+def layer_plan(cfg) -> Tuple[str, ...]:
+    """Per-layer attention kind."""
+    if cfg.attn_pattern == "swa":
+        return ("window",) * cfg.n_layers
+    if cfg.attn_pattern == "local_global":
+        G, rem = _groups(cfg)
+        pat = ("window",) * cfg.local_per_global + ("full",)
+        return pat * G + ("window",) * rem
+    return ("full",) * cfg.n_layers
 
 
 # ------------------------------------------------------------------------ init
 def init_lm(cfg, gen: torch.Generator) -> Dict:
     check_supported(cfg)
-    return {"embed": B.init_embedding(cfg, gen),
-            "final_norm": B.init_norm(cfg, gen),
-            "layers": [init_block(cfg, gen) for _ in range(cfg.n_layers)]}
+    p = {"embed": B.init_embedding(cfg, gen), "final_norm": B.init_norm(cfg, gen)}
+    if cfg.attn_pattern == "local_global":
+        G, rem = _groups(cfg)
+        p["local_layers"] = [[init_block(cfg, gen) for _ in range(cfg.local_per_global)]
+                             for _ in range(G)]
+        p["global_layers"] = [init_block(cfg, gen) for _ in range(G)]
+        if rem:
+            p["tail_local"] = [init_block(cfg, gen) for _ in range(rem)]
+    else:
+        p["layers"] = [init_block(cfg, gen) for _ in range(cfg.n_layers)]
+    return p
 
 
 # --------------------------------------------------------------------- forward
@@ -109,34 +179,85 @@ def _embed_inputs(cfg, params, batch):
     table = params["embed"]["table"]
     tokens = torch.as_tensor(batch["tokens"], device=table.device)
     x = B.embed(params["embed"], tokens)
+    if cfg.family == "vlm":
+        patches = torch.as_tensor(batch["patches"], device=x.device)
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     return x, positions
 
 
-def _backbone(cfg, params, x, positions):
-    """Serving's pass: returns (x, [(k, v)] per layer)."""
-    kvs = []
-    for lp in params["layers"]:
-        x, kv = block_fwd(cfg, lp, x, positions, flash=x.is_cuda)
-        kvs.append(kv)
-    return x, kvs
+def _backbone(cfg, params, x, positions, *, train: bool):
+    """Every layer over the whole sequence.  Serving (``train`` False) sends
+    attention to the flash kernel on a CUDA tensor and returns the layers'
+    (k, v) as the caches group them: ``{"layers": [kv]}``, or for
+    local_global ``{"local": [[kv] * lpg] * G, "full": [kv] * G[, "tail":
+    [kv] * rem]}``.  Training takes the plain branch, rematerializes as the
+    reference's scans do under ``remat == "full"`` and returns no (k, v)."""
+    flash = x.is_cuda and not train
+    remat = train and cfg.remat == "full"
+
+    def train_layer(lp, h, kind):
+        return block_fwd(cfg, lp, h, positions, kind, flash=False)[0]
+
+    def run(kind, layers, h):
+        kvs = []
+        for lp in layers:
+            if not train:
+                h, kv = block_fwd(cfg, lp, h, positions, kind, flash=flash)
+                kvs.append(kv)
+            elif remat:
+                h = B.remat(train_layer, lp, h, kind)
+            else:
+                h = train_layer(lp, h, kind)
+        return h, kvs
+
+    if cfg.attn_pattern != "local_global":
+        kind = "window" if cfg.attn_pattern == "swa" else "full"
+        x, kvs = run(kind, params["layers"], x)
+        return x, {"layers": kvs}
+
+    def group(lps, gp, h):
+        h, lkv = run("window", lps, h)
+        if train:  # the global layer is rematerialized with its group only
+            return train_layer(gp, h, "full")
+        h, gkv = block_fwd(cfg, gp, h, positions, "full", flash=flash)
+        return h, lkv, gkv
+
+    out = {"local": [], "full": []}
+    for lps, gp in zip(params["local_layers"], params["global_layers"]):
+        if train:
+            # remat the WHOLE group, as the reference does: its global
+            # layer's activations are recomputed, not kept per group
+            x = B.remat(group, lps, gp, x) if remat else group(lps, gp, x)
+        else:
+            x, lkv, gkv = group(lps, gp, x)
+            out["local"].append(lkv)
+            out["full"].append(gkv)
+    if "tail_local" in params:
+        x, out["tail"] = run("window", params["tail_local"], x)
+    return x, out
 
 
 def train_loss(cfg, params, batch) -> torch.Tensor:
     check_supported(cfg)
     x, positions = _embed_inputs(cfg, params, batch)
     tokens = torch.as_tensor(batch["tokens"], device=x.device)
-
-    def layer(lp, h):
-        return block_fwd(cfg, lp, h, positions, flash=False)[0]
-
-    for lp in params["layers"]:
-        x = B.remat(layer, lp, x) if cfg.remat == "full" else layer(lp, x)
+    x, _ = _backbone(cfg, params, x, positions, train=True)
     x = B.apply_norm(params["final_norm"], x, cfg.norm)
+    if cfg.family == "vlm":
+        x = x[:, cfg.n_patches:]  # loss only on text positions
     return B.lm_loss_chunked(params["embed"], x, tokens, chunk=cfg.loss_chunk)
 
 
 # ---------------------------------------------------------------------- caches
+def _stack_kv(kvs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(nested lists of) per-layer (k, v) -> stacked (..., B, S, KV, hd)."""
+    if isinstance(kvs, tuple):
+        return kvs
+    parts = [_stack_kv(kv) for kv in kvs]
+    return torch.stack([k for k, _ in parts]), torch.stack([v for _, v in parts])
+
+
 def _full_cache_from_kv(k, v, S, pad=CACHE_PAD):
     """k, v: (L,B,S,KV,hd) -> capacity S+pad cache with (L, S+pad) kv_pos."""
     kc = F.pad(k, (0, 0, 0, 0, 0, pad))
@@ -146,45 +267,125 @@ def _full_cache_from_kv(k, v, S, pad=CACHE_PAD):
     return {"k": kc, "v": vc, "kv_pos": kv_pos.expand(k.shape[0], -1).clone()}
 
 
+def _ring_cache_from_kv(k, v, S, W):
+    """k, v: (*lead, B, S, KV, hd) -> W-slot ring caches keeping the last W
+    tokens, with (*lead, W) kv_pos.  For S >= W the window is rotated by the
+    reference's ``argsort`` of (arange(W) - shift) mod W, shift = (S - W)
+    mod W, and its positions travel with it; for S < W token p sits at slot
+    p and the empty slots (-1) are at the back."""
+    lead = k.shape[:-4]
+    dev = k.device
+    if S >= W:
+        pos = torch.arange(S - W, S, dtype=torch.int32, device=dev)
+        shift = (S - W) % W
+        idx = torch.remainder(torch.arange(W, device=dev) - shift, W)
+        inv = torch.argsort(idx)
+        kw, vw = k[..., S - W:, :, :], v[..., S - W:, :, :]
+        kc, vc, kv_pos = kw[..., inv, :, :], vw[..., inv, :, :], pos[inv]
+    else:
+        kv_pos = torch.cat([torch.arange(S, dtype=torch.int32, device=dev),
+                            torch.full((W - S,), -1, dtype=torch.int32, device=dev)])
+        kc = F.pad(k, (0, 0, 0, 0, 0, W - S))
+        vc = F.pad(v, (0, 0, 0, 0, 0, W - S))
+    return {"k": kc, "v": vc, "kv_pos": kv_pos.expand(*lead, W).clone()}
+
+
 def prefill(cfg, params, batch):
     check_supported(cfg)
     x, positions = _embed_inputs(cfg, params, batch)
     S = x.shape[1]
-    x, kvs = _backbone(cfg, params, x, positions)
+    x, kvs = _backbone(cfg, params, x, positions, train=False)
     x = B.apply_norm(params["final_norm"], x, cfg.norm)
     logits = B.unembed(params["embed"], x[:, -1:])
-    k = torch.stack([kv[0] for kv in kvs])
-    v = torch.stack([kv[1] for kv in kvs])
-    cache = {"pos": torch.tensor(S, dtype=torch.int32, device=x.device),
-             "full": _full_cache_from_kv(k, v, S)}
+    cache = {"pos": torch.tensor(S, dtype=torch.int32, device=x.device)}
+    W = cfg.window
+    if cfg.attn_pattern == "local_global":
+        cache["local"] = _ring_cache_from_kv(*_stack_kv(kvs["local"]), S, W)
+        cache["full"] = _full_cache_from_kv(*_stack_kv(kvs["full"]), S)
+        if "tail" in kvs:
+            cache["tail"] = _ring_cache_from_kv(*_stack_kv(kvs["tail"]), S, W)
+    elif cfg.attn_pattern == "swa":
+        cache["win"] = _ring_cache_from_kv(*_stack_kv(kvs["layers"]), S, W)
+    else:
+        cache["full"] = _full_cache_from_kv(*_stack_kv(kvs["layers"]), S)
     return logits, cache
 
 
 def init_cache(cfg, batch_size: int, seq_len: int, device) -> Dict:
-    """Empty cache with capacity for seq_len history (+pad)."""
+    """Empty cache with capacity for seq_len history (+pad): int8 full
+    caches with bf16 scales under ``cache_quant``, W-slot ring caches in the
+    model's dtype for window layers."""
     check_supported(cfg)
     dt = B.dtype_of(cfg)
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
     C = seq_len + CACHE_PAD
-    shape = (cfg.n_layers, batch_size, C, cfg.n_kv_heads, cfg.head_dim)
-    return {"pos": torch.tensor(seq_len, dtype=torch.int32, device=device),
-            "full": {"k": torch.zeros(shape, dtype=dt, device=device),
-                     "v": torch.zeros(shape, dtype=dt, device=device),
-                     "kv_pos": torch.full((cfg.n_layers, C), -1,
-                                          dtype=torch.int32, device=device)}}
+    zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=device)
+    empty = lambda shape: torch.full(shape, -1, dtype=torch.int32, device=device)
+
+    def full(n):
+        kv_dt = torch.int8 if cfg.cache_quant else dt
+        c = {"k": zeros((n, batch_size, C, KV, hd), kv_dt),
+             "v": zeros((n, batch_size, C, KV, hd), kv_dt),
+             "kv_pos": empty((n, C))}
+        if cfg.cache_quant:
+            c["k_scale"] = zeros((n, batch_size, C, KV, 1), torch.bfloat16)
+            c["v_scale"] = zeros((n, batch_size, C, KV, 1), torch.bfloat16)
+        return c
+
+    def ring(lead):
+        W = cfg.window
+        return {"k": zeros(lead + (batch_size, W, KV, hd), dt),
+                "v": zeros(lead + (batch_size, W, KV, hd), dt),
+                "kv_pos": empty(lead + (W,))}
+
+    cache = {"pos": torch.tensor(seq_len, dtype=torch.int32, device=device)}
+    if cfg.attn_pattern == "local_global":
+        G, rem = _groups(cfg)
+        cache.update(local=ring((G, cfg.local_per_global)), full=full(G))
+        if rem:
+            cache["tail"] = ring((rem,))
+    elif cfg.attn_pattern == "swa":
+        cache["win"] = ring((cfg.n_layers,))
+    else:
+        cache["full"] = full(cfg.n_layers)
+    return cache
+
+
+def _layer_cache(stacked: Dict, idx) -> Dict:
+    return {name: t[idx] for name, t in stacked.items()}
+
+
+def _stack_caches(caches: List[Dict]) -> Dict:
+    return {name: torch.stack([c[name] for c in caches]) for name in caches[0]}
 
 
 def decode_step(cfg, params, cache, token):
     """token: (B,1) int -> (logits (B,1,V), new cache)."""
     pos = cache["pos"]
     x = B.embed(params["embed"], token)
-    full = cache["full"]
-    new = {"k": [], "v": [], "kv_pos": []}
-    for i, lp in enumerate(params["layers"]):
-        lc = {name: full[name][i] for name in new}
-        x, nc = block_decode(cfg, lp, x, lc, pos)
-        for name in new:
-            new[name].append(nc[name])
+
+    def run(kind, layers, stacked, h):
+        new = []
+        for i, lp in enumerate(layers):
+            h, nc = block_decode(cfg, lp, h, _layer_cache(stacked, i), pos, kind)
+            new.append(nc)
+        return h, _stack_caches(new)
+
+    new_cache = {"pos": pos + 1}
+    if cfg.attn_pattern == "local_global":
+        local, full = [], []
+        for g, (lps, gp) in enumerate(zip(params["local_layers"],
+                                          params["global_layers"])):
+            x, nl = run("window", lps, _layer_cache(cache["local"], g), x)
+            x, nf = block_decode(cfg, gp, x, _layer_cache(cache["full"], g), pos, "full")
+            local.append(nl)
+            full.append(nf)
+        new_cache.update(local=_stack_caches(local), full=_stack_caches(full))
+        if "tail_local" in params:
+            x, new_cache["tail"] = run("window", params["tail_local"], cache["tail"], x)
+    else:
+        kind, ckey = ("window", "win") if cfg.attn_pattern == "swa" else ("full", "full")
+        x, new_cache[ckey] = run(kind, params["layers"], cache[ckey], x)
     x = B.apply_norm(params["final_norm"], x, cfg.norm)
     logits = B.unembed(params["embed"], x)
-    return logits, {"pos": pos + 1,
-                    "full": {name: torch.stack(ts) for name, ts in new.items()}}
+    return logits, new_cache

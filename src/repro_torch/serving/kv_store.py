@@ -15,7 +15,7 @@ reference's only within one process.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -23,6 +23,7 @@ from repro_torch._device import resolve_device
 from repro_torch.checkpoint.serialization import leaf_from_bytes, leaf_to_bytes, to_tensor
 from repro_torch.core import ServerConfig, make_store
 from repro_torch.core.hashtable import ENTRY_SIZE, splitmix64
+from repro_torch.core.layout import NULL_OFF
 from repro_torch.tree import flatten_with_path, unflatten
 
 #: per-shard geometry for the default serving cluster
@@ -31,18 +32,35 @@ PAGE_SHARD_CONFIG = ServerConfig(device_size=256 << 20, table_capacity=1 << 14,
                                  segment_size=4 << 20)
 
 
-def page_shard_config(leaf_bytes: int, n_records: int) -> ServerConfig:
-    """Per-shard geometry for snapshots whose largest leaf holds
-    ``leaf_bytes``: a record never spans a segment, so a segment holds one
-    such leaf and its record header (a whole decode-cache leaf is one object:
-    96 MiB for olmo_1b at 4 x 384 tokens), and the NVM holds each head's
-    first region plus a region for each of ``n_records`` records, should
-    they all land on one head, beside the hash table."""
-    seg = -(-(leaf_bytes + (64 << 10)) // 4096) * 4096
-    table = PAGE_SHARD_CONFIG.table_capacity * ENTRY_SIZE
-    return dataclasses.replace(
-        PAGE_SHARD_CONFIG, region_size=seg, segment_size=seg,
-        device_size=table + (PAGE_SHARD_CONFIG.n_heads + n_records) * seg)
+#: the most NVM a page-store server may have: its hash-table words hold
+#: 31-bit log offsets, and the all-ones offset is the null sentinel
+MAX_SHARD_BYTES = NULL_OFF
+#: bytes a page's record may add to its tensor (leaf and record headers)
+RECORD_SLACK = 64 << 10
+
+
+def page_shard_config(pages: Sequence[Tuple[str, int]], versions: int) -> ServerConfig:
+    """Per-shard geometry of a page store in which every shard can hold
+    ``versions`` snapshots of all of ``pages`` — (name, bytes) pairs, one
+    snapshot's pages — however the cluster routes their keys.  A shard has
+    one head and a segment holds one whole snapshot.  The log appends a
+    shard's records in write order and starts a fresh segment for a record
+    that does not fit what is left of its segment, so each segment after
+    the first starts at a record that, with the segment before it, passes
+    one snapshot's bytes: a snapshot boundary lies in between, and the
+    records of ``versions`` snapshots, or of any part of them, take at most
+    ``versions`` segments.  Raises ``ValueError`` when that NVM passes
+    ``MAX_SHARD_BYTES``."""
+    seg = sum((n + RECORD_SLACK + 7) & ~7 for _name, n in pages)
+    seg = -(-seg // 4096) * 4096
+    need = PAGE_SHARD_CONFIG.table_capacity * ENTRY_SIZE + versions * seg
+    if need > MAX_SHARD_BYTES:
+        raise ValueError(
+            f"{versions} snapshots of {seg} B of pages need {need} B of NVM "
+            f"on a page-store shard, past the {MAX_SHARD_BYTES} B a server "
+            f"addresses with the atomic word's 31-bit offsets")
+    return dataclasses.replace(PAGE_SHARD_CONFIG, n_heads=1, region_size=seg,
+                               segment_size=seg, device_size=need)
 
 
 def _page_key(seq_id: int, name: str, idx: int) -> int:

@@ -99,12 +99,13 @@ def test_serve_phase_on_cpu():
 
 def test_crc32_phase_on_cpu():
     """Exact checks (chunk-boundary widths scaled down), then the long-row
-    and serve-restore cases against zlib only; no device times off the
-    card."""
+    and the two serve-restore cases against zlib only; no device times off
+    the card."""
     out = chip_smoke.phase_crc32(torch.device("cpu"),
                                  shapes=[(1, 1), (3, 7), (2, 8)],
-                                 long=(2, 300), serve=(3, 1001))
-    assert [c["shape"] for c in out] == [[1, 1], [3, 7], [2, 8], [2, 300], [3, 1001]]
+                                 long=(2, 300), serve=((3, 1001), (2, 1003)))
+    assert [c["shape"] for c in out] == [[1, 1], [3, 7], [2, 8], [2, 300], [3, 1001],
+                                         [2, 1003]]
     assert all(c["exact"] and c["ms"] is None for c in out)
     assert out[-1]["plain_ms"] is None and out[-1]["bound_by"] == "bytes"
 
@@ -162,4 +163,57 @@ def test_full_config_train_bounds():
 
 def test_train_check_on_cpu():
     out = chip_smoke.run_train_check(torch.device("cpu"), seqs=(16,))
+    assert out["max_abs_err"] == 0.0
+
+
+def tiny_local_global():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("gemma3_27b").scaled_down(), n_layers=8)
+
+
+def test_serve_gemma3_phase_on_cpu():
+    """The serve_gemma3 phase on gemma3's scaled-down config with its tail,
+    a prompt past the 64-token window: ring caches through a preemption."""
+    out = chip_smoke.run_serve_gemma3(torch.device("cpu"), cfg=tiny_local_global(),
+                                      prompt_len=80, tokens=6, snapshot_every=2,
+                                      crash_at=3)
+    assert out["tokens_equal"] and out["prefills"] == 2
+    assert out["attn_pattern"] == "local_global" and out["window"] == 64
+    # ['local']['k'] is (1, 5, 1, 64, 2, 32) bf16
+    assert out["largest_cache_leaf"] == "['local']['k']"
+    assert out["largest_cache_leaf_bytes"] == 5 * 64 * 2 * 32 * 2
+    assert out["page_store"]["n_shards"] >= 2
+    assert out["page_store"]["segment_size"] > out["largest_cache_leaf_bytes"]
+    assert out["flash_attention"]["launches"] == 0  # the CPU runs the plain version
+    assert out["max_memory_allocated"] is None
+
+
+def test_gemma3_27b_prefill_flash_shape_and_bound():
+    """Each serve_gemma3 prefill runs the flash kernel on its 10 global
+    layers at (1 x 32 heads, 1536, 128); the bound of one call is its
+    4·BH·S²·hd/2 operations at 989 TFLOP/s."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import layer_plan
+    cfg = get_config("gemma3_27b")
+    assert cfg.param_count() == 27_007_647_744
+    assert layer_plan(cfg).count("full") == 10
+    assert chip_smoke.GEMMA3_PREFILL_FLASH == {(32, 1536, 128, "bfloat16"): 10}
+    assert ((32, 1536, 128), "bfloat16", True) in chip_smoke.FLASH_SHAPES
+    ms, by = chip_smoke.flash_bound_ms(32, 1536, 128, "bfloat16", True)
+    assert by == "operations"
+    assert ms == pytest.approx(4 * 32 * 1536**2 * 128 / 2 / 989e12 * 1e3)
+    assert ms == pytest.approx(0.0195, abs=1e-4)
+
+
+@pytest.mark.parametrize("label", ["local_global", "pixtral"])
+def test_model_check_on_cpu_for_the_new_patterns(label):
+    kwargs = dict(chip_smoke.MODEL_CHECKS[label], prompt_len=72 if label == "local_global" else 8)
+    out = chip_smoke.run_model_check(torch.device("cpu"), batch=1, steps=2, **kwargs)
+    assert out["max_abs_err"] == 0.0
+
+
+@pytest.mark.parametrize("label", ["local_global", "pixtral"])
+def test_train_check_on_cpu_for_the_new_patterns(label):
+    kwargs = dict(chip_smoke.TRAIN_CHECKS[label], seqs=(72,) if label == "local_global" else (8,))
+    out = chip_smoke.run_train_check(torch.device("cpu"), **kwargs)
     assert out["max_abs_err"] == 0.0

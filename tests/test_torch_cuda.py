@@ -177,3 +177,100 @@ def test_trainer_resumes_on_card(cuda_device):
     assert losses_b == pytest.approx(losses_a[-2:], rel=1e-4)
     assert ops.COUNTS["crc32_batch"].launches > 0
     assert ops.COUNTS["flash_attention"].launches == 0
+
+
+def lg_config(**kw):
+    """gemma3's scaled-down local_global config with its two-layer tail,
+    float32 (window 64)."""
+    return dataclasses.replace(get_config("gemma3_27b").scaled_down(), n_layers=8,
+                               dtype="float32", **kw)
+
+
+@pytest.mark.parametrize("arch,kw,seq,flash_layers", [
+    ("gemma3_27b", {"n_layers": 8}, 160, 1),  # past the window: globals only
+    ("gemma3_27b", {"n_layers": 8}, 48, 8),   # inside it: every layer
+    ("pixtral_12b", {}, 24, 4),
+    ("olmo_1b", {"attn_pattern": "swa", "window": 64}, 100, 0)])
+def test_pattern_prefill_and_decode_on_card_match_cpu(cuda_device, arch, kw, seq,
+                                                      flash_layers):
+    """Prefill and four decode steps of each new pattern, f32, on the card
+    against the CPU within 3e-5.  A window layer longer than its window
+    never reaches the flash kernel; one inside it may."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).scaled_down(), dtype="float32", **kw)
+    params = get_model(cfg, "cpu").init(0)
+    batch = make_batch(cfg, ShapeConfig("t", seq, 2, "prefill"))
+    runs = []
+    before = ops.COUNTS["flash_attention"].launches
+    with torch.inference_mode():
+        for dev in (cuda_device, torch.device("cpu")):
+            model = get_model(cfg, dev)
+            p = map_leaves(lambda t: t.to(dev), params)
+            logits, cache = model.prefill(p, batch)
+            if dev.type == "cuda":
+                assert ops.COUNTS["flash_attention"].launches == before + flash_layers
+            outs = [logits]
+            for _ in range(4):
+                token = torch.argmax(logits, dim=-1).to(torch.int32)
+                logits, cache = model.decode_step(p, cache, token)
+                outs.append(logits)
+            runs.append(outs)
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a.cpu(), b, rtol=3e-5, atol=3e-5)
+
+
+def test_int8_decode_on_card_matches_cpu(cuda_device):
+    """The int8 cache replay on the card against the CPU: logits within
+    3e-5 over 8 steps, int8 K/V with bf16 scales."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = lg_config(cache_quant=True)
+    params = get_model(cfg, "cpu").init(0)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 8)).astype(np.int32))
+    runs = []
+    with torch.inference_mode():
+        for dev in (cuda_device, torch.device("cpu")):
+            model = get_model(cfg, dev)
+            p = map_leaves(lambda t: t.to(dev), params)
+            cache, outs = model.init_cache(2, 0), []
+            for t in range(8):
+                logits, cache = model.decode_step(p, cache, toks[:, t:t + 1].to(dev))
+                outs.append(logits)
+            assert cache["full"]["k"].dtype == torch.int8 and cache["full"]["k"].device.type == dev.type
+            runs.append(outs)
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a.cpu(), b, rtol=3e-5, atol=3e-5)
+
+
+def test_head_dim_256_raises_on_card(cuda_device):
+    """gemma3_12b's global layers (hd = 256) have no flash route: prefill on
+    the card raises, naming ROADMAP.md, and does not fall back."""
+    cfg = dataclasses.replace(get_config("gemma3_12b").scaled_down(), head_dim=256)
+    model = get_model(cfg, cuda_device)
+    batch = make_batch(cfg, ShapeConfig("t", 16, 1, "prefill"))
+    with torch.inference_mode(), pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        model.prefill(model.init(0), batch)
+
+
+@pytest.mark.parametrize("arch,kw,seq", [("gemma3_27b", {"n_layers": 8}, 160),
+                                         ("pixtral_12b", {}, 24)])
+def test_pattern_train_step_on_card_matches_cpu(cuda_device, arch, kw, seq):
+    """local_global (banded attention, group remat) and vlm: the loss and
+    every gradient on the card match the CPU within 3e-5, with no flash
+    launch."""
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import flatten_with_path
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).scaled_down(), dtype="float32",
+                              remat="full", **kw)
+    params = get_model(cfg, "cpu").init(0)
+    batch = make_batch(cfg, ShapeConfig("t", seq, 2, "train"))
+    want_l, want_g = loss_and_grads(get_model(cfg, "cpu").train_loss, params, batch)
+    before = ops.COUNTS["flash_attention"].launches
+    got_l, got_g = loss_and_grads(get_model(cfg, cuda_device).train_loss,
+                                  map_leaves(lambda t: t.to(cuda_device), params), batch)
+    assert ops.COUNTS["flash_attention"].launches == before
+    np.testing.assert_allclose(got_l.item(), want_l.item(), rtol=3e-5, atol=3e-5)
+    for (p, a), (_q, b) in zip(flatten_with_path(got_g), flatten_with_path(want_g)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=3e-5, atol=3e-5,
+                                   err_msg=p)

@@ -49,8 +49,9 @@ def port_modules():
 
 
 def test_every_port_module_imports_without_jax_or_repro():
-    """In a fresh interpreter: import every module of repro_torch, run a
-    store round trip on the CPU, and find no jax / repro in sys.modules."""
+    """In a fresh interpreter: import every module of repro_torch, serve,
+    train, prefill a local_global config past its window and run a store
+    round trip on the CPU, and find no jax / repro in sys.modules."""
     code = f"""
 import importlib, sys
 for name in {port_modules()!r}:
@@ -63,6 +64,12 @@ assert serve(batch=1, prompt_len=8, tokens=3, snapshot_every=1, crash_at=1,
              device="cpu").shape == (1, 3)
 assert len(train(steps=2, batch=2, seq=16, ckpt_every=1, log_every=0,
                  device="cpu")[1]) == 2
+import dataclasses
+from repro_torch.models import get_model
+lg = get_model(dataclasses.replace(get_config("gemma3_27b").scaled_down(),
+                                   n_layers=8), "cpu")
+logits, cache = lg.prefill(lg.init(0), dict(tokens=[[1] * 80]))
+assert logits.shape == (1, 1, 512) and sorted(cache) == ["full", "local", "pos", "tail"]
 s = make_store("erda-cluster", n_shards=2, replication=2, device="cpu",
                cfg=ServerConfig(device_size=4 << 20, table_capacity=1 << 9,
                                 n_heads=2, region_size=256 << 10,

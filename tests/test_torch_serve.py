@@ -56,5 +56,11 @@ def test_page_store_segments_hold_a_whole_cache_leaf():
     shard = store.store.cluster.cfg
     leaf = 16 * 4 * (256 + 128) * 16 * 128 * 2
     assert leaf == 96 << 20
-    assert leaf < shard.segment_size <= leaf + (68 << 10)
-    assert shard.device_size >= (4 + 5 * 4) * shard.segment_size
+    # a segment holds one whole snapshot: the k and v leaves, and beside
+    # them the small pages (pos, kv_pos, tokens) and the record headers
+    assert 2 * leaf < shard.segment_size <= 2 * leaf + (1 << 20)
+    # a shard holds the three snapshots a preempted 16-token run writes,
+    # under the atomic word's 31-bit offsets
+    assert shard.device_size >= 3 * shard.segment_size
+    assert shard.device_size < 1 << 31
+    assert len(store.store.cluster.groups) == 2

@@ -10,8 +10,10 @@ Phases, each printing one JSON line and raising on any mismatch:
   crc32       the CRC-32 kernel against its plain PyTorch version and host
               zlib, exactly (widths at the kernel's chunk boundaries among
               them), with kernel / plain / zlib times, and alone at the
-              serve restore's (3, 25165843) and the serve_gemma3 restore's
-              (6, 52428820) against zlib and the bound;
+              serve restore's (3, 25165843), the serve_gemma3 restore's
+              (6, 52428820), the serve_granite_moe restore's (3, 37748755)
+              and the serve_gemma3_12b restore's (5, 41943060) against
+              zlib and the bound;
   flash_attention  the flash-attention kernel (bf16: tensor-core route;
               f32: CUDA-core route) against its plain PyTorch version at the
               serve path's and olmo_1b's shapes and at the 64-key tile's
@@ -38,14 +40,30 @@ Phases, each printing one JSON line and raising on any mismatch:
               it; first the local_global (8 layers, 160 tokens) and vlm
               (pixtral) models on the card against the CPU on small f32
               configs;
+  serve_granite_moe  granite_moe_3b at its full config (32 MoE layers, 40
+              experts top-8; 3.30e9 parameters, random from a seed): 4
+              requests x 1024 prompt tokens (4 dispatch groups of 256 a row),
+              16 greedy tokens, clean and preempted at token 10 — the tokens
+              must be equal, the restore must launch the CRC kernel and each
+              prefill must launch the flash kernel exactly once a layer (32)
+              at (96, 1024, 64) on the tensor-core route; prints the pairs
+              the prefill's capacity dropped; first the MoE models (granite
+              at k = 8 in groups of 16, mixtral's swa past its window) on the
+              card against the CPU on small f32 configs;
+  serve_gemma3_12b  gemma3_12b at its full config (48 layers, 5:1
+              local:global, head_dim 256; 11.8e9 parameters): 1 request x
+              1536 prompt tokens, as serve_gemma3 — each prefill must launch
+              the flash kernel exactly once a global layer (8) at (16, 1536,
+              256); first gemma3_12b scaled down with head_dim 256 on the
+              card against the CPU;
   train       olmo_1b at its full config trained by the port's trainer: 5
               steps of 4 x 2048 tokens with an Erda checkpoint of the whole
               train state (11.8 GB) after step 3, then a fresh trainer
               resumes from it (every shard CRC-verified on the card) and its
               losses must equal the uninterrupted run's; no flash launch;
               first one train step on the card against the CPU on small
-              f32 configs, olmo_1b, local_global and pixtral (loss and
-              every gradient);
+              f32 configs, olmo_1b, local_global, pixtral, granite_moe and
+              mixtral (loss with the MoE aux term, and every gradient);
   kernels     one JSON line with an entry per ported kernel: launches on
               the main paths, agreement with the plain version, time beside
               its bound, the plain version's and the library call's.
@@ -87,6 +105,12 @@ SERVE_RESTORE_CRC = (3, 25165843)
 #: rows a shard's batch has follows the page keys' routing, which Python
 #: salts per process (6 and 4 in one run)
 GEMMA3_RESTORE_CRC = (6, 52428820)
+#: ... of serve_granite_moe: rows padded to the k leaf (150,994,944 B; 1
+#: and 3 rows a shard in one run)
+GRANITE_RESTORE_CRC = (3, 37748755)
+#: ... of serve_gemma3_12b: rows padded to the ['local']['k'] leaf
+#: (167,772,160 B; 2 and 5 rows a shard in one run)
+GEMMA3_12B_RESTORE_CRC = (5, 41943060)
 
 #: the train phase's tolerance on resumed losses (the reference's, in
 #: tests/test_checkpoint.py) and on card-vs-CPU gradients (its model check)
@@ -95,16 +119,37 @@ GRAD_TOL = 3e-5
 
 #: the flash launches one serve_gemma3 prefill makes: one a global layer
 GEMMA3_PREFILL_FLASH = {(32, 1536, 128, "bfloat16"): 10}
+#: ... one serve_gemma3_12b prefill: 8 global layers, 16 heads of 256
+GEMMA3_12B_PREFILL_FLASH = {(16, 1536, 256, "bfloat16"): 8}
+#: ... one serve_granite_moe prefill: every layer, 4 requests x 24 heads
+GRANITE_PREFILL_FLASH = {(96, 1024, 64, "bfloat16"): 32}
+#: granite_moe_3b scaled down with top-8 of 16 experts in groups of 16, so
+#: k = 8 and several dispatch groups a row run on the card
+GRANITE_K8 = {"n_experts": 16, "n_experts_active": 8, "moe_group": 16}
+#: the largest gate gap a routing flip between the card and the CPU may have
+#: (a near tie: the two packages' float32 gates differ by ~1e-7)
+NEAR_TIE = 1e-6
+#: the most (routing call, token) pairs a model or train check lets flip
+MAX_FLIPS = 8
 #: the small f32 configs on which the model and train checks hold the card
 #: to the CPU.  local_global at 8 layers has gemma3's two-layer tail, and
 #: 160 tokens pass its 64-token window; pixtral prepends 8 patches
 LOCAL_GLOBAL = dict(arch="gemma3_27b", overrides={"n_layers": 8})
 MODEL_CHECKS = {"olmo_1b": dict(arch="olmo_1b", prompt_len=64),
                 "local_global": dict(LOCAL_GLOBAL, prompt_len=160),
-                "pixtral": dict(arch="pixtral_12b", prompt_len=24)}
+                "pixtral": dict(arch="pixtral_12b", prompt_len=24),
+                "granite_moe": dict(arch="granite_moe_3b", overrides=GRANITE_K8,
+                                    prompt_len=64),
+                "mixtral": dict(arch="mixtral_8x22b", prompt_len=100),
+                "gemma3_12b": dict(arch="gemma3_12b",
+                                   overrides={"head_dim": 256, "n_layers": 8},
+                                   prompt_len=160)}
 TRAIN_CHECKS = {"olmo_1b": dict(arch="olmo_1b", seqs=(64, 640)),
                 "local_global": dict(LOCAL_GLOBAL, seqs=(160,)),
-                "pixtral": dict(arch="pixtral_12b", seqs=(24,))}
+                "pixtral": dict(arch="pixtral_12b", seqs=(24,)),
+                "granite_moe": dict(arch="granite_moe_3b", overrides=GRANITE_K8,
+                                    seqs=(64,)),
+                "mixtral": dict(arch="mixtral_8x22b", seqs=(100,))}
 
 #: olmo_1b widths (src/repro/configs/olmo_1b.py)
 OLMO_1B = dict(d_model=2048, n_kv_heads=16, head_dim=128, d_ff=8192,
@@ -115,7 +160,10 @@ OLMO_1B = dict(d_model=2048, n_kv_heads=16, head_dim=128, d_ff=8192,
 #: is olmo_1b's full context; (32, 1536, 128) a gemma3_27b global layer in
 #: the serve_gemma3 prefill (1 request x 32 heads, KV repeated 16 -> 32);
 #: S = 64, 65, 100 hold the bf16 kernel's 64-key tile edge and ragged tail
-#: against the plain version
+#: against the plain version; (96, 1024, 64) is a serve_granite_moe prefill
+#: layer (4 requests x 24 heads), (16, 1536, 256) a serve_gemma3_12b global
+#: layer, and the other hd-256 rows its tile edge, a ragged non-causal tail
+#: and the CUDA-core route
 FLASH_SHAPES = [((64, 256, 128), "bfloat16", True),
                 ((64, 512, 128), "bfloat16", True),
                 ((32, 2048, 128), "bfloat16", True),
@@ -124,7 +172,12 @@ FLASH_SHAPES = [((64, 256, 128), "bfloat16", True),
                 ((16, 65, 128), "bfloat16", True),
                 ((16, 100, 128), "bfloat16", False),
                 ((3, 192, 32), "float32", True),
-                ((2, 128, 64), "float32", False)]
+                ((2, 128, 64), "float32", False),
+                ((96, 1024, 64), "bfloat16", True),
+                ((16, 1536, 256), "bfloat16", True),
+                ((16, 65, 256), "bfloat16", True),
+                ((16, 100, 256), "bfloat16", False),
+                ((3, 192, 256), "float32", True)]
 #: max |kernel - plain| allowed, by dtype (the reference's tolerances)
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 
@@ -268,8 +321,9 @@ def phase_device() -> dict:
     t0 = time.perf_counter()
     build.build()
     build_s = time.perf_counter() - t0
+    # registers and shared memory ("ptxas info"), stack and spills
     ptxas = [ln.strip() for log in build.BUILD_LOG.values()
-             for ln in log.splitlines() if "ptxas info" in ln]
+             for ln in log.splitlines() if "ptxas info" in ln or "spill" in ln]
     info = {"torch": torch.__version__, "cuda": torch.version.cuda,
             "python": sys.version.split()[0],
             "name": torch.cuda.get_device_name(0),
@@ -305,11 +359,12 @@ def crc_case(n: int, w: int, seed: int, dev, *, plain: bool = True) -> dict:
 
 
 def phase_crc32(dev, shapes=None, *, long=(120, 1048581),
-                serve=(SERVE_RESTORE_CRC, GEMMA3_RESTORE_CRC)) -> list:
+                serve=(SERVE_RESTORE_CRC, GEMMA3_RESTORE_CRC, GRANITE_RESTORE_CRC,
+                       GEMMA3_12B_RESTORE_CRC)) -> list:
     """Kernel vs plain version vs zlib, exactly, at the listed shapes (the
     chunk-boundary widths among them); then 4 MiB records (a checkpoint
-    shard) and the serve and serve_gemma3 restores' batches against zlib
-    only — the plain version's per-byte loop would take minutes to hours at
+    shard) and the batches of the serve, serve_gemma3, serve_granite_moe and
+    serve_gemma3_12b restores against zlib only — the plain version's per-byte loop would take minutes to hours at
     those widths."""
     from repro_torch.kernels.crc32 import CHUNK_UNITS
     c = 4 * CHUNK_UNITS  # words of one chunk of the kernel's first pass
@@ -583,13 +638,120 @@ def busy_share(fn, dev, top: int = 0) -> dict:
     return out
 
 
+class RoutingLog:
+    """While entered, every ``moe.route`` call's chosen experts, queue
+    positions, keep-mask and float32 gates, in call order, on the CPU.
+
+    With ``replay`` (another run's calls: the card's log), each call is held
+    to that run's call of the same index: a token whose experts differ must
+    be a near tie (``check_flip``), and such a call then routes as the other
+    run did, with this run's gates at the other run's experts, so that both
+    runs go on computing the same function on nearly the same inputs.
+    ``flips`` lists the calls that flipped."""
+
+    def __init__(self, replay=None):
+        self.calls, self.replay, self.flips = [], replay, []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models.layers import moe as M
+        self._route = route = M.route
+
+        def logged(params, x, cfg):
+            r = route(params, x, cfg)
+            xg = x.reshape(*r.topi.shape[:3], x.shape[-1]).float()
+            gates = torch.softmax(xg.detach() @ params["router"].detach(), dim=-1)
+            own = (r.topi.cpu(), r.pos.cpu(), r.keep.cpu(), gates.cpu())
+            self.calls.append(own)
+            if self.replay is None:
+                return r
+            i = len(self.calls) - 1
+            check(i < len(self.replay),
+                  f"routing call {i} past the other run's {len(self.replay)}")
+            flip = routing_flip(self.replay[i], own)
+            if flip is None:
+                return r
+            self.flips.append(check_flip(dict(flip, call=i), "routing"))
+            topi, pos, keep = (t.to(x.device) for t in self.replay[i][:3])
+            topv = torch.softmax(xg @ params["router"], dim=-1).gather(-1, topi)
+            topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+            return M.Routing(r.g, r.C, topi, topv, pos, keep)
+        M.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models.layers import moe as M
+        M.route = self._route
+
+    def dropped(self) -> dict:
+        """(token, expert) pairs over capacity, of all pairs routed."""
+        pairs = sum(keep.numel() for _i, _p, keep, _g in self.calls)
+        dropped = sum(int((~keep).sum()) for _i, _p, keep, _g in self.calls)
+        return {"calls": len(self.calls), "pairs": pairs, "dropped": dropped,
+                "dropped_share": dropped / pairs if pairs else None}
+
+
+def routing_flip(card, cpu):
+    """None when one routing call sent every token to the same experts on
+    both runs, each (token, expert) pair with the same keep (the order of a
+    token's experts does not matter); else the tokens whose experts differ,
+    the largest gap between the CPU's gates of the experts either side chose
+    there (None when no token's experts differ), and the groups whose keep
+    differs although no token of theirs flipped: capacity follows the
+    experts chosen, so those are faults."""
+    import torch
+    (ta, _pa, ka, _ga), (tb, _pb, kb, gb) = card, cpu
+
+    def by_expert(topi, keep):  # (B, n, g, E): the pairs capacity kept
+        return torch.zeros((*topi.shape[:-1], gb.shape[-1]),
+                           dtype=torch.bool).scatter(-1, topi, keep)
+    differ = (ta.sort(-1).values != tb.sort(-1).values).any(-1)    # (B, n, g)
+    keep_differ = (by_expert(ta, ka) != by_expert(tb, kb)).any(-1).any(-1)
+    stray = int((keep_differ & ~differ.any(-1)).sum())
+    if not differ.any() and not stray:
+        return None
+    gap = None
+    for idx in differ.nonzero().tolist():
+        experts = sorted(set(ta[tuple(idx)].tolist()) ^ set(tb[tuple(idx)].tolist()))
+        g = gb[tuple(idx)][experts]
+        gap = max(gap or 0.0, float(g.max() - g.min()))
+    return {"tokens": int(differ.sum()), "max_gate_gap": gap, "keep_faults": stray}
+
+
+def check_flip(flip: dict, what: str) -> dict:
+    """A routing flip passes only as a near tie: each token whose experts
+    differ has the gates of those experts less than ``NEAR_TIE`` apart, and
+    every keep difference lies in a group with such a token."""
+    gap = flip["max_gate_gap"]
+    check(gap is not None and gap < NEAR_TIE and not flip["keep_faults"],
+          f"{what}: routing on the card != CPU and it is no near tie: {flip}")
+    return flip
+
+
+def check_routing(card: RoutingLog, cpu: RoutingLog, what: str) -> list:
+    """The flips of ``cpu``, a replay of ``card`` (each a near tie, checked
+    as it happened), after checking that both runs made the same routing
+    calls and flipped at most ``MAX_FLIPS`` (call, token) pairs."""
+    check(len(card.calls) == len(cpu.calls),
+          f"{what}: {len(card.calls)} routing calls on the card, "
+          f"{len(cpu.calls)} on the CPU")
+    flipped = sum(f["tokens"] for f in cpu.flips)
+    check(flipped <= MAX_FLIPS, f"{what}: {flipped} routed tokens flipped between "
+          f"the card and the CPU, more than {MAX_FLIPS}: {cpu.flips}")
+    return cpu.flips
+
+
 def run_model_check(dev, *, arch: str = "olmo_1b", overrides=None, batch: int = 2,
                     prompt_len: int = 64, steps: int = 4) -> dict:
     """The model on ``dev`` against the CPU's plain path on the same weights
     (``arch``'s scaled-down config with ``overrides``, in float32, weights
     drawn on the CPU): prefill logits, every cache leaf and ``steps``
     decode steps' logits within 3e-5, the tolerance the CPU tests hold the
-    port to against the JAX package."""
+    port to against the JAX package.  A MoE config's CPU run replays the
+    card's routing (``RoutingLog``): should the card route a token to other
+    experts than the CPU, the check fails unless the flip is a near tie,
+    the CPU then routes as the card did, every value is still compared, and
+    the line lists the flips (``routing_flips``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -615,17 +777,20 @@ def run_model_check(dev, *, arch: str = "olmo_1b", overrides=None, batch: int = 
               f"model on {dev} != CPU at {what}: max abs err {err}")
 
     with torch.inference_mode():
-        runs = []
+        runs, logs = [], []
         for d in (dev, cpu):
             model = get_model(cfg, d)
             p = map_leaves(lambda t: t.to(d), params)
-            logits, cache = model.prefill(p, prompts)
-            outs = [(logits, cache)]
-            for _ in range(steps):
-                token = torch.argmax(outs[0][0], dim=-1).to(torch.int32)
-                logits, cache = model.decode_step(p, cache, token)
-                outs.append((logits, cache))
+            with RoutingLog(replay=logs[0].calls if logs else None) as log:
+                logits, cache = model.prefill(p, prompts)
+                outs = [(logits, cache)]
+                for _ in range(steps):
+                    token = torch.argmax(outs[0][0], dim=-1).to(torch.int32)
+                    logits, cache = model.decode_step(p, cache, token)
+                    outs.append((logits, cache))
             runs.append(outs)
+            logs.append(log)
+    flips = check_routing(*logs, f"model check {arch}")
     for i, ((la, ca), (lb, cb)) in enumerate(zip(*runs)):
         close(la, lb, f"step {i} logits")
         for (path, a), (_q, b) in zip(flatten_with_path(ca), flatten_with_path(cb)):
@@ -633,19 +798,21 @@ def run_model_check(dev, *, arch: str = "olmo_1b", overrides=None, batch: int = 
     return {"config": f"{arch} scaled_down float32 {overrides}",
             "attn_pattern": cfg.attn_pattern, "family": cfg.family, "batch": batch,
             "prompt_len": prompt_len, "decode_steps": steps,
+            "moe_routing_calls": len(logs[1].calls), "routing_flips": flips,
             "max_abs_err": worst, "tol": 3e-5}
 
 
 def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
               tokens: int = 16, snapshot_every: int = 8, crash_at: int = 10,
-              seed: int = 0, flash_per_prefill=None) -> dict:
+              seed: int = 0, flash_per_prefill=None, probe=None) -> dict:
     """The serving engine at ``cfg`` (default: olmo_1b at its full config):
     a clean run, then a run preempted after ``crash_at`` decode steps that
     restores its cache from the page store; each engine has its own page
     store (``launch.serve.page_store_for``).  The tokens must be equal, and
     on the card the prefill must have launched the flash kernel — exactly
     ``flash_per_prefill`` ({launch key: count}) a prefill where given — and
-    the restore the CRC kernel."""
+    the restore the CRC kernel.  ``probe(model, params, prompts)``, run
+    before the main path, adds its dict to the result under "probe"."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -682,6 +849,7 @@ def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
                                      for p, t in flatten_with_path(cache)),
                                     key=lambda leaf: leaf[0])
         del logits, cache
+        probed = probe(model, params, prompts) if probe else None
 
     names = ("prefill_ms", "decode_ms", "snapshot_ms", "restore_ms")
     times = {run: {n: [] for n in names} for run in ("clean", "preempted")}
@@ -731,7 +899,7 @@ def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
            "snapshot_every": snapshot_every, "crash_at": crash_at,
            "largest_cache_leaf_bytes": leaf_bytes, "largest_cache_leaf": leaf_path,
            "page_store": geometry, "tokens_equal": True, "prefills": prefills,
-           "first_tokens": clean[0].tolist(), "profiled": busy,
+           "first_tokens": clean[0].tolist(), "profiled": busy, "probe": probed,
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev) if cuda else None}
     for run, t in times.items():
         out[run] = {"prefill_ms": t["prefill_ms"][0],
@@ -747,28 +915,74 @@ def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
     return out
 
 
-def run_serve_gemma3(dev, *, cfg=None, prompt_len: int = 1536, **kwargs) -> dict:
-    """``run_serve`` at gemma3_27b's full config (default), 1 request x
-    ``prompt_len`` tokens: every local layer runs banded attention, and on
-    the card each prefill must launch the flash kernel exactly
-    ``GEMMA3_PREFILL_FLASH``."""
+def run_serve_full(dev, arch: str, *, cfg=None, restore_crc_words=None,
+                   **kwargs) -> dict:
+    """``run_serve`` at ``arch``'s full config (default; else ``cfg``), whose
+    parameters must number the config's count plus the norms' scales; on
+    the card at the full config the widest restore CRC row must be
+    ``restore_crc_words`` words where given."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     full = cfg is None
-    cfg = cfg or get_config("gemma3_27b")
-    out = run_serve(dev, cfg=cfg, batch=1, prompt_len=prompt_len,
-                    flash_per_prefill=GEMMA3_PREFILL_FLASH, **kwargs)
-    if dev.type == "cuda" and full:
+    cfg = cfg or get_config(arch)
+    out = run_serve(dev, cfg=cfg, **kwargs)
+    if dev.type == "cuda" and full and restore_crc_words:
         # the crc32 phase holds the kernel to zlib at this width
         widest = max(w for _n, w in ops.COUNTS["crc32_batch"].shapes)
-        check(widest == GEMMA3_RESTORE_CRC[1],
+        check(widest == restore_crc_words,
               f"restore CRC rows of {widest} words, the crc32 phase checks "
-              f"{GEMMA3_RESTORE_CRC[1]}")
+              f"{restore_crc_words}")
     # the config's count leaves out the norms' scales: two a layer, one final
     norms = (2 * cfg.n_layers + 1) * cfg.d_model if cfg.norm != "nonparam_ln" else 0
     check(out["params"] == cfg.param_count() + norms,
           f"{out['params']} parameters, the config counts {cfg.param_count()} + {norms}")
     return dict(out, config_param_count=cfg.param_count())
+
+
+def run_serve_gemma3(dev, *, cfg=None, prompt_len: int = 1536, **kwargs) -> dict:
+    """gemma3_27b's full config (default), 1 request x ``prompt_len``
+    tokens: every local layer runs banded attention, and on the card each
+    prefill must launch the flash kernel exactly ``GEMMA3_PREFILL_FLASH``."""
+    return run_serve_full(dev, "gemma3_27b", cfg=cfg, batch=1, prompt_len=prompt_len,
+                          flash_per_prefill=GEMMA3_PREFILL_FLASH,
+                          restore_crc_words=GEMMA3_RESTORE_CRC[1], **kwargs)
+
+
+def run_serve_gemma3_12b(dev, *, cfg=None, prompt_len: int = 1536, **kwargs) -> dict:
+    """gemma3_12b's full config (default; head_dim 256), 1 request x
+    ``prompt_len`` tokens: on the card each prefill must launch the flash
+    kernel exactly ``GEMMA3_12B_PREFILL_FLASH``, on the tensor-core route at
+    head_dim 256, and the restore's widest CRC row is the crc32 phase's
+    ``GEMMA3_12B_RESTORE_CRC`` width."""
+    return run_serve_full(dev, "gemma3_12b", cfg=cfg, batch=1, prompt_len=prompt_len,
+                          flash_per_prefill=GEMMA3_12B_PREFILL_FLASH,
+                          restore_crc_words=GEMMA3_12B_RESTORE_CRC[1], **kwargs)
+
+
+def moe_prefill_drops(model, params, prompts) -> dict:
+    """One prefill with its routing logged: the (token, expert) pairs that
+    capacity dropped, of all pairs, over every MoE layer, and the layers'
+    group size and capacity."""
+    import torch
+    from repro_torch.models.layers import moe as M
+    cfg = model.cfg
+    with torch.inference_mode(), RoutingLog() as log:
+        model.prefill(params, prompts)
+    g = M.group_size(cfg, prompts["tokens"].shape[1])
+    return dict(log.dropped(), group=g, capacity=M.capacity(cfg, g))
+
+
+def run_serve_granite_moe(dev, *, cfg=None, batch: int = 4, prompt_len: int = 1024,
+                          **kwargs) -> dict:
+    """granite_moe_3b's full config (default), ``batch`` x ``prompt_len``
+    tokens: on the card each prefill must launch the flash kernel exactly
+    ``GRANITE_PREFILL_FLASH`` and the restore's widest CRC row is the crc32
+    phase's ``GRANITE_RESTORE_CRC`` width; the probe counts the pairs a
+    prefill's capacity drops."""
+    return run_serve_full(dev, "granite_moe_3b", cfg=cfg, batch=batch,
+                          prompt_len=prompt_len, flash_per_prefill=GRANITE_PREFILL_FLASH,
+                          probe=moe_prefill_drops,
+                          restore_crc_words=GRANITE_RESTORE_CRC[1], **kwargs)
 
 
 def run_train_check(dev, *, arch: str = "olmo_1b", overrides=None, batch: int = 2,
@@ -778,7 +992,9 @@ def run_train_check(dev, *, arch: str = "olmo_1b", overrides=None, batch: int = 
     layer rematerialized as at the full config, weights drawn on the CPU):
     the loss and every gradient leaf within ``GRAD_TOL``, and the trainer
     step's loss and grad norm.  For olmo_1b S = 64 takes dense attention,
-    640 chunked (5 KV chunks of 128); past a window, banded attention."""
+    640 chunked (5 KV chunks of 128); past a window, banded attention.  A
+    MoE config's CPU run replays the card's routing as in
+    ``run_model_check``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -804,16 +1020,21 @@ def run_train_check(dev, *, arch: str = "olmo_1b", overrides=None, batch: int = 
                                                          atol=GRAD_TOL)),
               f"train step on {dev} != CPU at {what}: max abs err {err}")
 
+    flips = []
     for seq in seqs:
         batch_np = make_batch(cfg, ShapeConfig("check", seq, batch, "train"))
-        runs = []
+        runs, logs = [], []
         for d in (dev, cpu):
             model = get_model(cfg, d)
             s = map_leaves(lambda t: t.to(d), state)
             batch_d = {k: torch.as_tensor(v, device=d) for k, v in batch_np.items()}
-            loss, grads = loss_and_grads(model.train_loss, s["params"], batch_d)
-            _new, metrics = trainer_step(model, 3e-4, 10)(s, batch_d)
+            with RoutingLog(replay=logs[0].calls if logs else None) as log:
+                loss, grads = loss_and_grads(model.train_loss, s["params"], batch_d)
+                _new, metrics = trainer_step(model, 3e-4, 10)(s, batch_d)
             runs.append((loss, grads, metrics))
+            logs.append(log)
+        flips += [dict(f, seq=seq) for f in
+                  check_routing(*logs, f"train check {arch} S={seq}")]
         (la, ga, ma), (lb, gb, mb) = runs
         close(la, lb, f"S={seq} loss")
         close(ma["loss"], mb["loss"], f"S={seq} step loss")
@@ -822,7 +1043,8 @@ def run_train_check(dev, *, arch: str = "olmo_1b", overrides=None, batch: int = 
             close(a, b, f"S={seq} grad {path}")
     return {"config": f"{arch} scaled_down float32 remat=full attn_chunk=128 {overrides}",
             "attn_pattern": cfg.attn_pattern, "family": cfg.family,
-            "batch": batch, "seqs": list(seqs), "max_abs_err": worst, "tol": GRAD_TOL}
+            "batch": batch, "seqs": list(seqs), "routing_flips": flips,
+            "max_abs_err": worst, "tol": GRAD_TOL}
 
 
 def run_train(dev, *, cfg=None, batch: int = 4, seq: int = 2048, steps: int = 5,
@@ -935,13 +1157,20 @@ def run_train(dev, *, cfg=None, batch: int = 4, seq: int = 2048, steps: int = 5,
             "flash_launches": flash.launches}
 
 
-def flash_entry(dev, launches: int, shapes: dict) -> dict:
-    """The flash kernel at the main path's most frequent launch (the serve
+def flash_entry(dev, launches: int, shapes: dict, also=()) -> dict:
+    """The flash kernel at the main path's most frequent launch (a serve
     prefill's shape and dtype), beside its plain version, SDPA and its
-    bound."""
+    bound; ``also`` lists other launch keys of the main paths reported the
+    same way (gemma3_12b's head_dim 256)."""
     *shape, dtype = max(shapes, key=shapes.get)
     case = flash_case(tuple(shape), dtype, True, seed=7, dev=dev)
-    return {"name": "flash_attention", "route": "cuda",
+    more = []
+    for *other, odtype in also:
+        c = flash_case(tuple(other), odtype, True, seed=8, dev=dev)
+        more.append({k: c[k] for k in ("shape", "dtype", "max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms", "call_ms")}
+                    | {"launches": shapes.get((*other, odtype), 0)})
+    return {"name": "flash_attention", "route": "cuda", "also": more,
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:70",
             "launches": launches, "matches_plain": True,
@@ -970,7 +1199,8 @@ def crc_entry(dev, launches: int, shapes: dict) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="device,crc32,flash_attention,kv_pages,"
-                    "checkpoint,serve,serve_gemma3,train,kernels")
+                    "checkpoint,serve,serve_gemma3,serve_granite_moe,"
+                    "serve_gemma3_12b,train,kernels")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     import torch
@@ -997,12 +1227,15 @@ def main(argv=None) -> int:
     shapes = {name: {} for name in ops.COUNTS}
     runs = [("kv_pages", run_kv_pages), ("checkpoint", run_checkpoint),
             ("serve", run_serve), ("serve_gemma3", run_serve_gemma3),
-            ("train", run_train)]
+            ("serve_granite_moe", run_serve_granite_moe),
+            ("serve_gemma3_12b", run_serve_gemma3_12b), ("train", run_train)]
     # the card against the CPU on small f32 configs, before the phase
     model_check = lambda label: ("model_check", label, run_model_check, MODEL_CHECKS[label])
     train_check = lambda label: ("train_check", label, run_train_check, TRAIN_CHECKS[label])
     checks = {"serve": [model_check("olmo_1b")],
               "serve_gemma3": [model_check("local_global"), model_check("pixtral")],
+              "serve_granite_moe": [model_check("granite_moe"), model_check("mixtral")],
+              "serve_gemma3_12b": [model_check("gemma3_12b")],
               "train": [train_check(label) for label in TRAIN_CHECKS]}
     for name, run in runs:
         if name not in phases:
@@ -1025,8 +1258,9 @@ def main(argv=None) -> int:
         if crc_shapes:
             entries.append(crc_entry(dev, launches["crc32_batch"], crc_shapes))
         if shapes["flash_attention"]:
+            hd256 = [k for k in GEMMA3_12B_PREFILL_FLASH if k in shapes["flash_attention"]]
             entries.append(flash_entry(dev, launches["flash_attention"],
-                                       shapes["flash_attention"]))
+                                       shapes["flash_attention"], also=hd256))
         print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

@@ -19,6 +19,14 @@ packages leave the same NVM bytes and each restores what the other saved
 process).  One difference: a restore fetches a manifest's shards with ONE
 ``multi_read`` — one batch CRC verify on the card — where the reference reads
 them one by one; results and NVM bytes are the same, doorbell counts are not.
+
+The store may be one ``ErdaStore`` (the reference's) or an
+``ErdaClusterStore`` (what ``launch.train.checkpoint_manager_for`` builds):
+``restore``'s fallback to the previous manifest reads the hash-table word
+and the old record on the server that owns ``MANIFEST_KEY`` (on a cluster,
+the primary of its shard), and ``crash_recover`` runs the §4.2 scan on
+every server through ``store.recover()``.  The reference reaches
+``store.server`` directly and so works on a single store only.
 """
 from __future__ import annotations
 
@@ -105,18 +113,29 @@ class ErdaCheckpointManager:
         except DataLossError:
             pass
         # shards of the latest step torn → previous manifest version
-        entry = self.store.server.table.lookup(MANIFEST_KEY)
+        server = self._manifest_server()
+        entry = server.table.lookup(MANIFEST_KEY)
         from repro_torch.core import layout
         _tag, _new, off_old = layout.unpack_word(entry.word)
         if off_old == layout.NULL_OFF:
             return None, None
-        rec = layout.parse_record(self.store.dev.mem, off_old)
+        rec = layout.parse_record(server.dev.mem, off_old)
         if not rec.ok:
             return None, None
         manifest = json.loads(rec.value.decode())
         return manifest["step"], self._try_restore(manifest, template)
 
+    def _manifest_server(self):
+        """The ``ErdaServer`` that holds ``MANIFEST_KEY``: the single
+        store's, or the primary of the cluster shard the key routes to."""
+        if hasattr(self.store, "cluster"):
+            shard = self.store.shard_for_key(MANIFEST_KEY)
+            return self.store.cluster.groups[shard].primary.server
+        return self.store.server
+
     # ----------------------------------------------------- failure injection
     def crash_recover(self):
-        """Simulate server restart: recovery scan + metadata repair (§4.2)."""
-        return self.store.server.recover()
+        """Simulate a restart of every server: recovery scan + metadata
+        repair (§4.2); returns the scan's stats (summed over a cluster's
+        shards)."""
+        return self.store.recover()

@@ -32,24 +32,29 @@
 // reduced across the 4 threads that hold it, with exp2 of log2(e)-scaled
 // scores; P is rounded to bf16 in registers and becomes the A operand of
 // O += P V (wgmma m64n{hd}k16, V the MN-major B operand: the transpose
-// bit).  Only the diagonal tile (causal) and the tail tile (s % 64) are
-// masked.  Heaviest query tiles are issued first; no atomics and no split
-// across KV, so the result is deterministic.  The TMA descriptors are
-// encoded on the host through cudaGetDriverEntryPoint, so the library links
-// only the runtime.  Not done yet: warp specialisation (a producer warp),
-// persistent blocks, ping-pong between two consumer warpgroups, fp8, GQA.
+// bit; at hd = 256 two m64n128k16 on V's column halves, whose 128 f32
+// accumulators a thread are the register budget's largest term).  Only
+// the diagonal tile (causal) and the tail tile (s % 64) are masked.
+// Heaviest query tiles are issued
+// first; no atomics and no split across KV, so the result is deterministic.
+// The TMA descriptors are encoded on the host through
+// cudaGetDriverEntryPoint, so the library links only the runtime.  Not
+// done yet: warp specialisation (a producer warp), persistent blocks,
+// ping-pong between two consumer warpgroups, fp8, GQA.
 //
 // float32 -> flash_fwd_kernel, on the CUDA cores (the port's first flash
-// kernel, kept as it was: TF32 could not meet the 2e-5 tolerance of the f32
-// path).  A block of kWarps warps owns kBlockQ = 16 query rows of one head,
-// kRowsPerWarp rows a warp.  For each tile of kBlockK = 32 keys the block stages K and V in
-// shared memory as float32 (K rows padded to hd + 4 floats, so that 32 lanes
+// kernel: TF32 could not meet the 2e-5 tolerance of the f32 path).  A block
+// of kWarps warps owns kBlockQ = 16 query rows of one head, kRowsPerWarp
+// rows a warp.  For each tile of kBlockK = 32 keys the block stages K and V
+// in shared memory as float32 (K rows padded to hd + 4 floats, so that 32 lanes
 // reading 32 rows with 16-byte loads hit distinct banks); lane j scores key
 // j against each of its warp's rows (q is read as a shared-memory
 // broadcast), the warp reduces the tile's max and sum with __shfl_xor_sync,
 // and for the P.V product each lane owns hd/32 of the output dimensions and
-// takes each key's probability by __shfl_sync.  Shared memory at hd = 128:
-// 8 KiB of q, 16.5 KiB of K, 16 KiB of V, under the 48 KiB static limit.
+// takes each key's probability by __shfl_sync.  Shared memory is dynamic:
+// at hd = 128 8 KiB of q, 16.5 KiB of K and 16 KiB of V; at hd = 256 80.4
+// KiB, past the 48 KiB static limit, raised with cudaFuncSetAttribute (two
+// blocks an SM).
 // Blocks are scheduled heaviest first (the last query block of each head
 // first) so the causal tail of the grid is short.
 #include <cstdint>
@@ -86,6 +91,15 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// dynamic shared memory of the float32 kernel: q (kBlockQ x HD), K padded
+// to HD + 4 floats a row (bank-conflict free), V (kBlockK x HD)
+template <int HD>
+struct F32Smem {
+  static constexpr int kKStride = HD + 4;
+  static constexpr int kBytes =
+      (kBlockQ * HD + kBlockK * kKStride + kBlockK * HD) * static_cast<int>(sizeof(float));
+};
+
 template <typename T, int HD>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -93,10 +107,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int s, int n_qblocks, bool causal, float scale) {
   static_assert(HD % 32 == 0, "head_dim must be a multiple of 32");
   constexpr int kPer = HD / 32;     // output dimensions a lane owns
-  constexpr int kKStride = HD + 4;  // padded K row (bank-conflict free)
-  __shared__ __align__(16) float q_s[kBlockQ][HD];
-  __shared__ __align__(16) float k_s[kBlockK][kKStride];
-  __shared__ __align__(16) float v_s[kBlockK][HD];
+  constexpr int kKStride = F32Smem<HD>::kKStride;
+  extern __shared__ __align__(16) float smem_f32[];
+  auto q_s = reinterpret_cast<float (*)[HD]>(smem_f32);
+  auto k_s = reinterpret_cast<float (*)[kKStride]>(smem_f32 + kBlockQ * HD);
+  auto v_s = reinterpret_cast<float (*)[HD]>(smem_f32 + kBlockQ * HD + kBlockK * kKStride);
 
   const int64_t head = blockIdx.x % bh;
   const int qb = n_qblocks - 1 - static_cast<int>(blockIdx.x / bh);
@@ -353,6 +368,23 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
                            G::kAtomBytes, G::kSwMode);
 }
 
+// O (64 x HD) += P (64 x 16, registers) * V's keys [16 kk, 16 kk + 16); at
+// HD = 256 as two m64n128k16 on V's column halves, 2 column blocks apart,
+// each into its half of the accumulator (registers 0-63: columns 0-127)
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[HD / 2], const uint32_t (&a)[4],
+                                         uint32_t v_addr, int kk) {
+  if constexpr (HD == 256) {
+    using G = Geom<HD>;
+    wgmma_rs<128>(*reinterpret_cast<float(*)[64]>(&acc[0]), a,
+                  desc_mnmajor<HD>(v_addr, kk));
+    wgmma_rs<128>(*reinterpret_cast<float(*)[64]>(&acc[64]), a,
+                  desc_mnmajor<HD>(v_addr + 2 * G::kBlockBytes, kk));
+  } else {
+    wgmma_rs<HD>(acc, a, desc_mnmajor<HD>(v_addr, kk));
+  }
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
@@ -485,7 +517,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTileN / 16; ++kk)
-      wgmma_rs<HD>(acc, pa[kk], desc_mnmajor<HD>(v_addr, kk));
+      wgmma_pv<HD>(acc, pa[kk], v_addr, kk);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc);
@@ -593,7 +625,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t bh,
   const int64_t n_qblocks = (s + kBlockQ - 1) / kBlockQ;
   const int64_t blocks = n_qblocks * bh;
   if (s > INT32_MAX / HD || blocks > INT32_MAX) return cudaErrorInvalidValue;
-  flash_fwd_kernel<T, HD><<<static_cast<unsigned>(blocks), kWarps * 32, 0,
+  constexpr int kSmem = F32Smem<HD>::kBytes;
+  cudaFuncSetAttribute(flash_fwd_kernel<T, HD>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  flash_fwd_kernel<T, HD><<<static_cast<unsigned>(blocks), kWarps * 32, kSmem,
                             stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), bh, static_cast<int>(s),
@@ -608,6 +643,7 @@ int launch_f32_hd(const void* q, const void* k, const void* v, void* o,
     case 32: return launch<float, 32>(q, k, v, o, bh, s, causal, scale, stream);
     case 64: return launch<float, 64>(q, k, v, o, bh, s, causal, scale, stream);
     case 128: return launch<float, 128>(q, k, v, o, bh, s, causal, scale, stream);
+    case 256: return launch<float, 256>(q, k, v, o, bh, s, causal, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -619,6 +655,7 @@ int launch_bf16_hd(const void* q, const void* k, const void* v, void* o,
     case 32: return launch_wgmma<32>(q, k, v, o, bh, s, causal, scale, stream);
     case 64: return launch_wgmma<64>(q, k, v, o, bh, s, causal, scale, stream);
     case 128: return launch_wgmma<128>(q, k, v, o, bh, s, causal, scale, stream);
+    case 256: return launch_wgmma<256>(q, k, v, o, bh, s, causal, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -626,7 +663,7 @@ int launch_bf16_hd(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q, k, v, o: contiguous (bh, s, hd), 16-byte aligned; dtype 0 = float32
-// (CUDA-core kernel), 1 = bfloat16 (wgmma kernel); hd in {32, 64, 128}.
+// (CUDA-core kernel), 1 = bfloat16 (wgmma kernel); hd in {32, 64, 128, 256}.
 // Launches on `stream` and returns cudaGetLastError() (0 = launched), or
 // cudaErrorInvalidValue for arguments the kernels do not take.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,

@@ -6,8 +6,10 @@ The prefill attention of every layer of the served model
 source, its bound and its design notes are in ``csrc/flash_attention.cu``.
 
 Layout: q, k, v and the output are (BH, S, hd), float32 or bfloat16, with
-hd in ``HEAD_DIMS``; ``ops.flash_attention`` folds (B, S, H, hd) into it.
-Another head dim (gemma3_12b's 256) raises ``NotImplementedError``.
+hd in ``HEAD_DIMS`` (every head dim of the repository's configs, gemma3's
+256 among them); ``ops.flash_attention`` folds (B, S, H, hd) into it.
+Another head dim raises ``NotImplementedError``: the card never falls back
+to the plain version.
 
 Two routes, by dtype: bfloat16 runs on the tensor cores (wgmma, TMA), float32
 on the CUDA cores (the tolerance of the float32 path rules out TF32).  Each
@@ -25,7 +27,7 @@ import torch
 from repro_torch.kernels import build
 
 #: head dims the kernel is built for
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 #: torch dtype -> the kernel's dtype code
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: dtype name (the last element of a launch key) -> the route that runs it
@@ -63,7 +65,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.shape[-1] not in HEAD_DIMS:
         raise NotImplementedError(
             f"the flash kernel is built for head_dim in {HEAD_DIMS}, got "
-            f"{q.shape[-1]}: a route for it is queued in ROADMAP.md (Queue 2)")
+            f"{q.shape[-1]}")
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_cuda needs q, k, v on one CUDA device")
     if q.dtype not in DTYPE_CODES:

@@ -6,9 +6,15 @@ the port of ``repro/launch/serve.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda --scale full \
         --arch gemma3_27b --batch 1 --prompt-len 1536
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cuda --scale full \
+        --arch granite_moe_3b --prompt-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cuda --scale full \
+        --arch gemma3_12b --batch 1 --prompt-len 1536
 
-Weights are random, drawn from seed 0.  The page store is sized from the
-decode cache's leaves (``page_store_for``): a segment holds the largest, and
+Weights are random, drawn from seed 0.  Every transformer family serves:
+dense, moe (granite_moe_3b, mixtral_8x22b) and vlm, with the full, swa and
+local_global patterns.  The page store is sized from the decode cache's
+leaves (``page_store_for``): a segment holds the largest, and
 each shard every snapshot of the run, under its 31-bit offsets.
 """
 from __future__ import annotations

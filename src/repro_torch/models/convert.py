@@ -8,8 +8,10 @@ layers, (G, local_per_global, ...).  ``to_reference_tree`` stacks the
 port's lists into the reference's leaves and ``from_reference_tree`` splits
 them back, so a checkpoint of the port's train state has the reference's
 leaf paths (``['opt']['m']['local_layers']['attn']['wq']``) and either
-package resumes what the other saved.  Weights keep their (d_in, d_out)
-layout (both packages apply them as ``x @ W``).
+package resumes what the other saved.  A moe layer's ``"moe"`` leaves
+stack the same way (``['layers']['moe']['wg']``: (L, E, d, f), the float32
+router (L, d, E)).  Weights keep their (d_in, d_out) layout (both packages
+apply them as ``x @ W``).
 
 ``params_from_numpy(jax.tree.map(np.asarray, params), cfg, device)`` and
 ``train_state_from_numpy`` take the JAX package's trees as numpy arrays;

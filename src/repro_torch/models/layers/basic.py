@@ -13,6 +13,7 @@ device: ``registry.get_model``'s init sets it to the model's device, and a
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
@@ -64,9 +65,18 @@ def apply_norm(params: Dict, x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------------ rope
+@functools.lru_cache(maxsize=None)
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
-    return theta ** (-exps / head_dim)
+    """(head_dim/2,) float32 theta^(-2i/head_dim), computed on the CPU and
+    copied to ``device`` once.  The card's ``pow`` and the CPU's differ in
+    the last place for some exponents, and at position p the angle moves by
+    p ulps of the frequency: 3.6e-5 in the cached k on an H100 at head_dim
+    256 and 160 tokens, past the model check's 3e-5.  With one set of frequencies both
+    devices rotate by the same angles.  The tensor is shared, never
+    written, and made outside inference mode, so training may use it."""
+    with torch.inference_mode(False):
+        exps = torch.arange(0, head_dim, 2, dtype=torch.float32)
+        return (theta ** (-exps / head_dim)).to(device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

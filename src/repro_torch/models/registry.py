@@ -10,9 +10,9 @@ get_model(cfg, device) -> namespace with:
   prefill(params, batch)               — (last_logits, cache)
   decode_step(params, cache, token)
   init_cache(batch_size, seq_len)      — empty cache on ``device``
-The transformer serves the dense, vlm and (once its layers are ported) moe
-families, as the reference's ``_family_module`` routes them; MoE layers and
-the other families raise ``NotImplementedError``.
+The transformer serves the dense, moe and vlm families, as the reference's
+``_family_module`` routes them; the other families (ssm, hybrid, encdec)
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 

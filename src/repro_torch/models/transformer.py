@@ -1,6 +1,6 @@
 """Decoder-only transformer LM: the dense, swa and local_global attention
-patterns and the vlm family — the port of ``repro/models/transformer.py``
-(everything but its MoE layers).
+patterns, the moe family and the vlm family — the port of
+``repro/models/transformer.py``.
 
 Parameters are the reference's tree with its stacked layer leaves split
 into per-layer lists, run by plain loops (the reference's ``scan_layers``):
@@ -12,10 +12,17 @@ into per-layer lists, run by plain loops (the reference's ``scan_layers``):
 them into the reference's (G, local_per_global, ...), (G, ...) and
 (rem, ...) leaves.
 
+A moe config (``n_experts`` > 0) gives every layer that is not a
+local_global local layer a ``"moe"`` block (``layers.moe``) in place of
+``"mlp"``, as the reference's ``init_block`` does; each layer's forward
+returns its auxiliary load-balance loss beside its output.
+
 Step functions:
   train_loss(params, batch)           — next-token CE (text positions only
                                         for vlm, whose patch embeddings are
-                                        prepended to the tokens')
+                                        prepended to the tokens'), plus
+                                        0.01 · (sum of the layers' aux) /
+                                        n_layers for moe
   prefill(params, batch)              — (last_logits (B,1,V), cache)
   decode_step(params, cache, token)   — one token against the cache
 The cache is the reference's tree, so its leaves flatten to the same paths
@@ -36,9 +43,10 @@ is the reference's plain branch (dense up to 512 tokens, chunked above).
 backward (nor has the reference's), and its wrapper refuses inputs that
 require a gradient.  With ``cfg.remat == "full"`` each layer is
 rematerialized in the backward pass, as the reference's scan body is, and
-for local_global the whole group as well.  MoE and the non-transformer
-families are not ported yet: ``check_supported`` raises
-``NotImplementedError`` for them.
+for local_global the whole group as well.  Decode drops the aux loss, as
+the reference's does.  The non-transformer families (ssm, hybrid, encdec)
+are not ported yet: ``check_supported`` raises ``NotImplementedError`` for
+them.
 """
 from __future__ import annotations
 
@@ -50,39 +58,55 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.layers import attention as A
 from repro_torch.models.layers import basic as B
+from repro_torch.models.layers import moe as M
 
 CACHE_PAD = 128  # decode caches get S + CACHE_PAD capacity
 
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for what the port does not have yet."""
-    missing = [what for what, bad in (
-        (f"family {cfg.family!r}", cfg.family not in ("dense", "moe", "vlm")),
-        ("MoE layers", bool(cfg.n_experts))) if bad]
-    if missing:
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported to repro_torch yet "
+            f"{cfg.name}: family {cfg.family!r} not ported to repro_torch yet "
             f"(ROADMAP.md, Queue 1)")
 
 
 # ---------------------------------------------------------------------- blocks
-def init_block(cfg, gen: torch.Generator) -> Dict:
-    return {"ln1": B.init_norm(cfg, gen), "attn": A.init_attention(cfg, gen),
-            "ln2": B.init_norm(cfg, gen), "mlp": B.init_mlp(cfg, gen)}
+def init_block(cfg, gen: torch.Generator, kind: str) -> Dict:
+    """kind: the attention pattern of a plain stack, or ``"local"`` /
+    ``"full"`` for local_global's local and global layers; every layer but
+    a local one is MoE in a moe config."""
+    p = {"ln1": B.init_norm(cfg, gen), "attn": A.init_attention(cfg, gen),
+         "ln2": B.init_norm(cfg, gen)}
+    if cfg.n_experts and kind != "local":
+        p["moe"] = M.init_moe(cfg, gen)
+    else:
+        p["mlp"] = B.init_mlp(cfg, gen)
+    return p
 
 
-def _mix(cfg, p, x, attn_out):
-    """Residual attn-out projection + MLP."""
+def _zero(x) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _mix(cfg, p, x, attn_out, *, aux: bool = True):
+    """Residual attn-out projection + MLP/MoE.  Returns (x, aux_loss): 0
+    without MoE, and None when ``aux`` is False (decode)."""
     x = x + attn_out @ p["attn"]["wo"]
     h = B.apply_norm(p["ln2"], x, cfg.norm)
-    return x + B.apply_mlp(p["mlp"], h, cfg)
+    if "moe" not in p:
+        return x + B.apply_mlp(p["mlp"], h, cfg), (_zero(x) if aux else None)
+    loss = M.aux_load_balance_loss(p["moe"], h, cfg) if aux else None
+    return x + M.apply_moe(p["moe"], h, cfg), loss
 
 
-def block_fwd(cfg, p, x, positions, kind: str, *, flash: bool) -> Tuple[torch.Tensor, Tuple]:
-    """One layer over the whole sequence; returns (x, (k, v)).  kind:
-    'full' | 'window'.  A window layer longer than its window runs banded
-    attention; otherwise ``flash`` sends the attention to the flash kernel
-    (a causal mask equals the window's there), else to the plain branch."""
+def block_fwd(cfg, p, x, positions, kind: str, *, flash: bool,
+              aux: bool = True) -> Tuple[torch.Tensor, Tuple, torch.Tensor]:
+    """One layer over the whole sequence; returns (x, (k, v), aux loss, None
+    unless ``aux``).  kind: 'full' | 'window'.  A window layer longer than
+    its window runs banded attention; otherwise ``flash`` sends the
+    attention to the flash kernel (a causal mask equals the window's
+    there), else to the plain branch."""
     B_, S, _ = x.shape
     h = B.apply_norm(p["ln1"], x, cfg.norm)
     q, k, v = A.qkv(p["attn"], h, cfg, positions)
@@ -98,7 +122,8 @@ def block_fwd(cfg, p, x, positions, kind: str, *, flash: bool) -> Tuple[torch.Te
     else:
         o = A.chunked_attention(q, k, v, cfg, causal=True)
     o = o.reshape(B_, S, cfg.q_dim)
-    return _mix(cfg, p, x, o), (k, v)
+    x, loss = _mix(cfg, p, x, o, aux=aux)
+    return x, (k, v), loss
 
 
 def _quantize_kv(t):
@@ -136,7 +161,7 @@ def block_decode(cfg, p, x, lcache, pos, kind: str):
         o = A.decode_attention(q, kc, vc, kp, pos, window=window)
         new_cache = {"k": kc, "v": vc, "kv_pos": kp}
     o = o.reshape(B_, 1, cfg.q_dim)
-    return _mix(cfg, p, x, o), new_cache
+    return _mix(cfg, p, x, o, aux=False)[0], new_cache
 
 
 # ----------------------------------------------------------------- layer plans
@@ -164,13 +189,14 @@ def init_lm(cfg, gen: torch.Generator) -> Dict:
     p = {"embed": B.init_embedding(cfg, gen), "final_norm": B.init_norm(cfg, gen)}
     if cfg.attn_pattern == "local_global":
         G, rem = _groups(cfg)
-        p["local_layers"] = [[init_block(cfg, gen) for _ in range(cfg.local_per_global)]
-                             for _ in range(G)]
-        p["global_layers"] = [init_block(cfg, gen) for _ in range(G)]
+        p["local_layers"] = [[init_block(cfg, gen, "local")
+                              for _ in range(cfg.local_per_global)] for _ in range(G)]
+        p["global_layers"] = [init_block(cfg, gen, "full") for _ in range(G)]
         if rem:
-            p["tail_local"] = [init_block(cfg, gen) for _ in range(rem)]
+            p["tail_local"] = [init_block(cfg, gen, "local") for _ in range(rem)]
     else:
-        p["layers"] = [init_block(cfg, gen) for _ in range(cfg.n_layers)]
+        p["layers"] = [init_block(cfg, gen, cfg.attn_pattern)
+                       for _ in range(cfg.n_layers)]
     return p
 
 
@@ -187,9 +213,11 @@ def _embed_inputs(cfg, params, batch):
 
 
 def _backbone(cfg, params, x, positions, *, train: bool):
-    """Every layer over the whole sequence.  Serving (``train`` False) sends
-    attention to the flash kernel on a CUDA tensor and returns the layers'
-    (k, v) as the caches group them: ``{"layers": [kv]}``, or for
+    """Every layer over the whole sequence; returns (x, kvs, aux), aux the
+    sum of the layers' auxiliary losses in training (0 when serving, which
+    computes none: the reference's prefill drops it).  Serving (``train``
+    False) sends attention to the flash kernel on a CUDA tensor and returns
+    the layers' (k, v) as the caches group them: ``{"layers": [kv]}``, or for
     local_global ``{"local": [[kv] * lpg] * G, "full": [kv] * G[, "tail":
     [kv] * rem]}``.  Training takes the plain branch, rematerializes as the
     reference's scans do under ``remat == "full"`` and returns no (k, v)."""
@@ -197,56 +225,63 @@ def _backbone(cfg, params, x, positions, *, train: bool):
     remat = train and cfg.remat == "full"
 
     def train_layer(lp, h, kind):
-        return block_fwd(cfg, lp, h, positions, kind, flash=False)[0]
+        h, _kv, aux = block_fwd(cfg, lp, h, positions, kind, flash=False)
+        return h, aux
 
     def run(kind, layers, h):
-        kvs = []
+        kvs, aux = [], _zero(h)
         for lp in layers:
             if not train:
-                h, kv = block_fwd(cfg, lp, h, positions, kind, flash=flash)
+                h, kv, _ = block_fwd(cfg, lp, h, positions, kind, flash=flash, aux=False)
                 kvs.append(kv)
-            elif remat:
-                h = B.remat(train_layer, lp, h, kind)
-            else:
-                h = train_layer(lp, h, kind)
-        return h, kvs
+                continue
+            h, a = B.remat(train_layer, lp, h, kind) if remat else train_layer(lp, h, kind)
+            aux = aux + a
+        return h, kvs, aux
 
     if cfg.attn_pattern != "local_global":
         kind = "window" if cfg.attn_pattern == "swa" else "full"
-        x, kvs = run(kind, params["layers"], x)
-        return x, {"layers": kvs}
+        x, kvs, aux = run(kind, params["layers"], x)
+        return x, {"layers": kvs}, aux
 
     def group(lps, gp, h):
-        h, lkv = run("window", lps, h)
+        h, lkv, laux = run("window", lps, h)
         if train:  # the global layer is rematerialized with its group only
-            return train_layer(gp, h, "full")
-        h, gkv = block_fwd(cfg, gp, h, positions, "full", flash=flash)
+            h, gaux = train_layer(gp, h, "full")
+            return h, laux + gaux
+        h, gkv, _ = block_fwd(cfg, gp, h, positions, "full", flash=flash, aux=False)
         return h, lkv, gkv
 
     out = {"local": [], "full": []}
+    aux = _zero(x)
     for lps, gp in zip(params["local_layers"], params["global_layers"]):
         if train:
             # remat the WHOLE group, as the reference does: its global
             # layer's activations are recomputed, not kept per group
-            x = B.remat(group, lps, gp, x) if remat else group(lps, gp, x)
+            x, a = B.remat(group, lps, gp, x) if remat else group(lps, gp, x)
+            aux = aux + a
         else:
             x, lkv, gkv = group(lps, gp, x)
             out["local"].append(lkv)
             out["full"].append(gkv)
     if "tail_local" in params:
-        x, out["tail"] = run("window", params["tail_local"], x)
-    return x, out
+        x, out["tail"], a = run("window", params["tail_local"], x)
+        aux = aux + a
+    return x, out, aux
 
 
 def train_loss(cfg, params, batch) -> torch.Tensor:
     check_supported(cfg)
     x, positions = _embed_inputs(cfg, params, batch)
     tokens = torch.as_tensor(batch["tokens"], device=x.device)
-    x, _ = _backbone(cfg, params, x, positions, train=True)
+    x, _, aux = _backbone(cfg, params, x, positions, train=True)
     x = B.apply_norm(params["final_norm"], x, cfg.norm)
     if cfg.family == "vlm":
         x = x[:, cfg.n_patches:]  # loss only on text positions
-    return B.lm_loss_chunked(params["embed"], x, tokens, chunk=cfg.loss_chunk)
+    loss = B.lm_loss_chunked(params["embed"], x, tokens, chunk=cfg.loss_chunk)
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux / cfg.n_layers
+    return loss
 
 
 # ---------------------------------------------------------------------- caches
@@ -294,7 +329,7 @@ def prefill(cfg, params, batch):
     check_supported(cfg)
     x, positions = _embed_inputs(cfg, params, batch)
     S = x.shape[1]
-    x, kvs = _backbone(cfg, params, x, positions, train=False)
+    x, kvs, _aux = _backbone(cfg, params, x, positions, train=False)
     x = B.apply_norm(params["final_norm"], x, cfg.norm)
     logits = B.unembed(params["embed"], x[:, -1:])
     cache = {"pos": torch.tensor(S, dtype=torch.int32, device=x.device)}

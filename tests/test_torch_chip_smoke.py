@@ -99,13 +99,14 @@ def test_serve_phase_on_cpu():
 
 def test_crc32_phase_on_cpu():
     """Exact checks (chunk-boundary widths scaled down), then the long-row
-    and the two serve-restore cases against zlib only; no device times off
+    and the four serve-restore cases against zlib only; no device times off
     the card."""
     out = chip_smoke.phase_crc32(torch.device("cpu"),
                                  shapes=[(1, 1), (3, 7), (2, 8)],
-                                 long=(2, 300), serve=((3, 1001), (2, 1003)))
+                                 long=(2, 300),
+                                 serve=((3, 1001), (2, 1003), (3, 1005), (1, 1007)))
     assert [c["shape"] for c in out] == [[1, 1], [3, 7], [2, 8], [2, 300], [3, 1001],
-                                         [2, 1003]]
+                                         [2, 1003], [3, 1005], [1, 1007]]
     assert all(c["exact"] and c["ms"] is None for c in out)
     assert out[-1]["plain_ms"] is None and out[-1]["bound_by"] == "bytes"
 
@@ -217,3 +218,179 @@ def test_train_check_on_cpu_for_the_new_patterns(label):
     kwargs = dict(chip_smoke.TRAIN_CHECKS[label], seqs=(72,) if label == "local_global" else (8,))
     out = chip_smoke.run_train_check(torch.device("cpu"), **kwargs)
     assert out["max_abs_err"] == 0.0
+
+
+# ------------------------------------------------ MoE and head_dim 256 phases
+def tiny_granite():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("granite_moe_3b").scaled_down(),
+                               **chip_smoke.GRANITE_K8)
+
+
+def test_serve_granite_moe_phase_on_cpu():
+    """The serve_granite_moe phase on granite's scaled-down config at k = 8
+    in groups of 16: tokens equal through a preemption, the parameter
+    count checked, and the probe's count of the prefill's dropped pairs."""
+    out = chip_smoke.run_serve_granite_moe(torch.device("cpu"), cfg=tiny_granite(),
+                                           batch=2, prompt_len=32, tokens=6,
+                                           snapshot_every=2, crash_at=3)
+    assert out["tokens_equal"] and out["prefills"] == 2
+    assert out["params"] == out["config_param_count"] + (2 * 4 + 1) * 128
+    probe = out["probe"]
+    # C = ceil(16 · 8 / 16 · 1.25) = 10, rounded up to a multiple of 4
+    assert probe["calls"] == 4 and probe["group"] == 16 and probe["capacity"] == 12
+    assert probe["pairs"] == 4 * 2 * 32 * 8 and 0 <= probe["dropped"] < probe["pairs"]
+    assert out["flash_attention"]["launches"] == 0  # the CPU runs the plain version
+
+
+def test_serve_gemma3_12b_phase_on_cpu():
+    """The serve_gemma3_12b phase on gemma3_12b's scaled-down config at
+    head_dim 256, a prompt past its 64-token window."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("gemma3_12b").scaled_down(), head_dim=256)
+    out = chip_smoke.run_serve_gemma3_12b(torch.device("cpu"), cfg=cfg, prompt_len=80,
+                                          tokens=6, snapshot_every=2, crash_at=3)
+    assert out["tokens_equal"] and out["attn_pattern"] == "local_global"
+    # ['local']['k'] is (1, 5, 1, 64, 2, 256) bf16
+    assert out["largest_cache_leaf_bytes"] == 5 * 64 * 2 * 256 * 2
+    assert out["probe"] is None
+
+
+@pytest.mark.parametrize("label", ["granite_moe", "mixtral", "gemma3_12b"])
+def test_model_check_on_cpu_for_moe_and_head_dim_256(label):
+    kwargs = dict(chip_smoke.MODEL_CHECKS[label],
+                  prompt_len={"granite_moe": 32, "mixtral": 72, "gemma3_12b": 72}[label])
+    out = chip_smoke.run_model_check(torch.device("cpu"), batch=1, steps=2, **kwargs)
+    assert out["max_abs_err"] == 0.0 and out["routing_flips"] == []
+    assert out["moe_routing_calls"] == (0 if label == "gemma3_12b" else 4 * 3)
+
+
+@pytest.mark.parametrize("label", ["granite_moe", "mixtral"])
+def test_train_check_on_cpu_for_moe(label):
+    kwargs = dict(chip_smoke.TRAIN_CHECKS[label], seqs=(32,) if label == "granite_moe" else (72,))
+    out = chip_smoke.run_train_check(torch.device("cpu"), **kwargs)
+    assert out["max_abs_err"] == 0.0 and out["routing_flips"] == []
+
+
+def fake_call(topi, keep, gates):
+    """One logged routing call (B = n = 1) from per-token lists."""
+    topi = torch.tensor(topi)[None, None]
+    return (topi, torch.zeros_like(topi), torch.tensor(keep)[None, None],
+            torch.tensor(gates)[None, None])
+
+
+def test_routing_flip_passes_near_ties_only():
+    gates = [[0.5, 0.25, 0.25 - 5e-7, 0.0], [0.1, 0.2, 0.3, 0.4]]
+    same = fake_call([[0, 1], [3, 2]], [[True, True], [True, True]], gates)
+    assert chip_smoke.routing_flip(same, same) is None
+    # the same experts in another order, the keep-mask following them: no flip
+    swapped = fake_call([[1, 0], [3, 2]], [[True, True], [True, True]], gates)
+    assert chip_smoke.routing_flip(swapped, same) is None
+    partly = fake_call([[0, 1], [3, 2]], [[True, False], [True, True]], gates)
+    assert chip_smoke.routing_flip(
+        fake_call([[1, 0], [3, 2]], [[False, True], [True, True]], gates), partly) is None
+    # the card took expert 2 for token 0 where the CPU took 1: 5e-7 apart
+    card = fake_call([[0, 2], [3, 2]], [[True, True], [True, False]], gates)
+    flip = chip_smoke.check_flip(chip_smoke.routing_flip(card, same), "test")
+    assert flip["tokens"] == 1 and flip["keep_faults"] == 0
+    assert flip["max_gate_gap"] == pytest.approx(5e-7, rel=0.05)  # float32 gates
+    # a flip between gates 0.1 apart is a fault
+    far = fake_call([[0, 1], [3, 0]], [[True, True], [True, True]], gates)
+    with pytest.raises(RuntimeError, match="no near tie"):
+        chip_smoke.check_flip(chip_smoke.routing_flip(far, same), "test")
+    # the same experts with another keep-mask is a fault too
+    with pytest.raises(RuntimeError, match="no near tie"):
+        chip_smoke.check_flip(chip_smoke.routing_flip(partly, same), "test")
+
+
+def test_routing_replay_routes_as_the_card_did(monkeypatch):
+    """A CPU run that replays another run's routing: a token routed to
+    another expert in the first call is a fault unless a near tie; let
+    through, the replay routes as the other run did and computes its
+    logits exactly; the flips count against ``MAX_FLIPS``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import make_batch
+    from repro_torch.models import get_model
+    from repro_torch.models.layers import moe as M
+    cfg = dataclasses.replace(get_config("granite_moe_3b").scaled_down(), dtype="float32",
+                              **chip_smoke.GRANITE_K8)
+    model = get_model(cfg, torch.device("cpu"))
+    params = model.init(0)
+    prompts = {k: torch.as_tensor(v) for k, v in make_batch(
+        cfg, ShapeConfig("t", 32, 1, "prefill")).items()}
+    top_k, calls = M.top_k, []
+
+    def swap_first(gates, k):  # the first call sends token 0 to its (k+1)-th expert
+        _v, i = top_k(gates, k + 1)
+        if not calls:
+            i = i.clone()
+            i[0, 0, 0, k - 1] = i[0, 0, 0, k]
+        calls.append(1)
+        i = i[..., :k]
+        return gates.gather(-1, i), i
+    with torch.inference_mode():
+        monkeypatch.setattr(M, "top_k", swap_first)
+        with chip_smoke.RoutingLog() as card:
+            card_logits, _ = model.prefill(params, prompts)
+        monkeypatch.setattr(M, "top_k", top_k)
+        with pytest.raises(RuntimeError, match="no near tie"):
+            with chip_smoke.RoutingLog(replay=card.calls):
+                model.prefill(params, prompts)
+        monkeypatch.setattr(chip_smoke, "NEAR_TIE", 1.0)
+        with chip_smoke.RoutingLog(replay=card.calls) as cpu:
+            logits, _ = model.prefill(params, prompts)
+        own, _ = model.prefill(params, prompts)
+    assert [(f["call"], f["tokens"]) for f in cpu.flips] == [(0, 1)]
+    assert torch.equal(logits, card_logits) and not torch.equal(own, card_logits)
+    assert chip_smoke.check_routing(card, cpu, "test") == cpu.flips
+    monkeypatch.setattr(chip_smoke, "MAX_FLIPS", 0)
+    with pytest.raises(RuntimeError, match="more than 0"):
+        chip_smoke.check_routing(card, cpu, "test")
+
+
+def test_new_flash_shapes_run_on_cpu():
+    """The new FLASH_SHAPES rows (granite's prefill layer, gemma3_12b's
+    global layer, hd-256 edges and the f32 hd-256 route) through the flash
+    phase on the CPU, plain against plain, at most 8 heads each."""
+    new = [row for row in chip_smoke.FLASH_SHAPES
+           if row[0][2] == 256 or row[0] == (96, 1024, 64)]
+    assert [(s, dt, c) for s, dt, c in new] == [
+        ((96, 1024, 64), "bfloat16", True), ((16, 1536, 256), "bfloat16", True),
+        ((16, 65, 256), "bfloat16", True), ((16, 100, 256), "bfloat16", False),
+        ((3, 192, 256), "float32", True)]
+    small = [((min(bh, 8), s, hd), dt, c) for (bh, s, hd), dt, c in new]
+    out = chip_smoke.run_flash_attention(torch.device("cpu"), shapes=small)
+    assert [c["max_abs_err"] for c in out] == [0.0] * 5
+    assert all(c["tol"] == chip_smoke.FLASH_TOL[c["dtype"]] for c in out)
+
+
+def test_granite_and_gemma3_12b_prefill_flash_keys():
+    """A serve_granite_moe prefill runs flash on all 32 layers at (4 x 24
+    heads, 1024, 64); a serve_gemma3_12b prefill on its 8 global layers at
+    (16 heads, 1536, 256).  The bounds of one call: operations, at 989
+    TFLOP/s."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import layer_plan
+    g = get_config("granite_moe_3b")
+    assert chip_smoke.GRANITE_PREFILL_FLASH == {(4 * g.n_heads, 1024, g.head_dim,
+                                                 "bfloat16"): g.n_layers}
+    assert g.param_count() == 3_298_693_632
+    c = get_config("gemma3_12b")
+    assert layer_plan(c).count("full") == 8 and c.head_dim == 256
+    assert chip_smoke.GEMMA3_12B_PREFILL_FLASH == {(c.n_heads, 1536, 256, "bfloat16"): 8}
+    ms, by = chip_smoke.flash_bound_ms(16, 1536, 256, "bfloat16", True)
+    assert by == "operations"
+    assert ms == pytest.approx(4 * 16 * 1536**2 * 256 / 2 / 989e12 * 1e3)
+
+
+def test_kernels_line_reports_the_head_dim_256_shape():
+    cpu = torch.device("cpu")
+    flash = chip_smoke.flash_entry(cpu, 4, {(2, 40, 32, "float32"): 3,
+                                            (1, 24, 256, "bfloat16"): 1},
+                                   also=[(1, 24, 256, "bfloat16")])
+    assert flash["shape"] == [2, 40, 32] and flash["launches"] == 4
+    (hd256,) = flash["also"]
+    assert hd256["shape"] == [1, 24, 256] and hd256["launches"] == 1
+    assert hd256["max_abs_err"] == 0.0 and hd256["ms"] is None
+    assert {"bound_ms", "bound_by", "plain_ms", "library_ms"} <= set(hd256)

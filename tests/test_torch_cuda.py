@@ -85,7 +85,7 @@ def test_store_round_trip_on_card(cuda_device):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)])
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 100, 192, 512, 2048])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 def test_flash_kernel_matches_plain(cuda_device, hd, s, dtype, tol, causal):
     rng = np.random.default_rng(hd * 1000 + s)
     q, k, v = (torch.from_numpy(rng.standard_normal((2, s, 3, hd)).astype(np.float32))
@@ -99,6 +99,15 @@ def test_flash_kernel_matches_plain(cuda_device, hd, s, dtype, tol, causal):
     assert got.dtype == dtype and got.is_cuda
     err = (fold(got).float() - want.float()).abs().max().item()
     assert err <= tol, err
+
+
+def test_rope_frequencies_on_card_are_the_cpus(cuda_device):
+    """The card rotates by the CPU's frequencies, bit for bit: the two
+    devices' pow differ in the last place, which position p multiplies."""
+    from repro_torch.models.layers.basic import rope_frequencies
+    cpu = rope_frequencies(256, 1_000_000.0, torch.device("cpu"))
+    card = rope_frequencies(256, 1_000_000.0, cuda_device)
+    assert card.is_cuda and torch.equal(card.cpu(), cpu)
 
 
 def test_flash_routes_are_counted_by_dtype(cuda_device):
@@ -190,11 +199,16 @@ def lg_config(**kw):
     ("gemma3_27b", {"n_layers": 8}, 160, 1),  # past the window: globals only
     ("gemma3_27b", {"n_layers": 8}, 48, 8),   # inside it: every layer
     ("pixtral_12b", {}, 24, 4),
-    ("olmo_1b", {"attn_pattern": "swa", "window": 64}, 100, 0)])
+    ("olmo_1b", {"attn_pattern": "swa", "window": 64}, 100, 0),
+    # head_dim 256 on the global layer (the f32 CUDA-core route)
+    ("gemma3_12b", {"head_dim": 256, "n_layers": 8}, 160, 1),
+    # MoE: k = 8 in groups of 16; mixtral's swa past its window
+    ("granite_moe_3b", {"n_experts": 16, "n_experts_active": 8, "moe_group": 16}, 64, 4),
+    ("mixtral_8x22b", {}, 100, 0)])
 def test_pattern_prefill_and_decode_on_card_match_cpu(cuda_device, arch, kw, seq,
                                                       flash_layers):
-    """Prefill and four decode steps of each new pattern, f32, on the card
-    against the CPU within 3e-5.  A window layer longer than its window
+    """Prefill and four decode steps of each pattern and of MoE, f32, on the
+    card against the CPU within 3e-5.  A window layer longer than its window
     never reaches the flash kernel; one inside it may."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_config(arch).scaled_down(), dtype="float32", **kw)
@@ -242,22 +256,14 @@ def test_int8_decode_on_card_matches_cpu(cuda_device):
         torch.testing.assert_close(a.cpu(), b, rtol=3e-5, atol=3e-5)
 
 
-def test_head_dim_256_raises_on_card(cuda_device):
-    """gemma3_12b's global layers (hd = 256) have no flash route: prefill on
-    the card raises, naming ROADMAP.md, and does not fall back."""
-    cfg = dataclasses.replace(get_config("gemma3_12b").scaled_down(), head_dim=256)
-    model = get_model(cfg, cuda_device)
-    batch = make_batch(cfg, ShapeConfig("t", 16, 1, "prefill"))
-    with torch.inference_mode(), pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.prefill(model.init(0), batch)
-
-
-@pytest.mark.parametrize("arch,kw,seq", [("gemma3_27b", {"n_layers": 8}, 160),
-                                         ("pixtral_12b", {}, 24)])
+@pytest.mark.parametrize("arch,kw,seq", [
+    ("gemma3_27b", {"n_layers": 8}, 160), ("pixtral_12b", {}, 24),
+    ("granite_moe_3b", {"n_experts": 16, "n_experts_active": 8, "moe_group": 16}, 64),
+    ("mixtral_8x22b", {}, 100)])
 def test_pattern_train_step_on_card_matches_cpu(cuda_device, arch, kw, seq):
-    """local_global (banded attention, group remat) and vlm: the loss and
-    every gradient on the card match the CPU within 3e-5, with no flash
-    launch."""
+    """local_global (banded attention, group remat), vlm and MoE (the aux
+    loss in the loss): the loss and every gradient on the card match the
+    CPU within 3e-5, with no flash launch."""
     from repro_torch.train.step import loss_and_grads
     from repro_torch.tree import flatten_with_path
     torch.backends.cuda.matmul.allow_tf32 = False

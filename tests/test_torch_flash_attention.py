@@ -46,7 +46,8 @@ def f32(x):
 
 @pytest.mark.parametrize("s,hd,bq,bk", [(128, 64, 64, 64), (256, 128, 128, 128),
                                         (256, 64, 128, 64), (192, 32, 64, 64),
-                                        (100, 32, 128, 128), (1, 64, 128, 128)])
+                                        (100, 32, 128, 128), (1, 64, 128, 128),
+                                        (160, 256, 64, 64), (65, 256, 128, 128)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_sweep_matches_pallas_and_ref(s, hd, bq, bk, dtype):
     q, k, v = inputs((3, s, hd), dtype, seed=s + hd)
@@ -67,6 +68,19 @@ def test_non_causal_matches_pallas():
     want = flash_attention_pallas(*map(jnp.asarray, (q, k, v)), causal=False,
                                   interpret=True)
     np.testing.assert_allclose(f32(got), f32(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_256_matches_pallas(dtype, causal):
+    """gemma3's head_dim: the wrapper (the plain version on the CPU) against
+    the Pallas kernel in interpret mode at (2, 100, 256), a ragged tail."""
+    q, k, v = inputs((2, 100, 256), dtype, seed=256)
+    got = port_folded(q, k, v, causal=causal)
+    want = flash_attention_pallas(*map(jnp.asarray, (q, k, v)), causal=causal,
+                                  interpret=True)
+    assert 256 in flash.HEAD_DIMS and got.shape == (2, 100, 256)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=TOL[dtype], atol=TOL[dtype])
 
 
 def test_plain_version_matches_reference_plain_version():
@@ -162,7 +176,7 @@ def wgmma_model(q, k, v, causal):
 
 @pytest.mark.parametrize("s,hd", [(128, 64), (256, 128), (256, 64), (192, 32),
                                   (100, 32), (1, 64), (1, 128), (100, 128),
-                                  (65, 128)])
+                                  (65, 128), (65, 256), (192, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_wgmma_numerics_model_within_bf16_tolerance(s, hd, causal):
     """The bf16 kernel's arithmetic, modelled on the CPU, against the JAX

@@ -50,8 +50,9 @@ def port_modules():
 
 def test_every_port_module_imports_without_jax_or_repro():
     """In a fresh interpreter: import every module of repro_torch, serve,
-    train, prefill a local_global config past its window and run a store
-    round trip on the CPU, and find no jax / repro in sys.modules."""
+    train, prefill a local_global config past its window and a MoE config,
+    run a store round trip on the CPU, and find no jax / repro in
+    sys.modules."""
     code = f"""
 import importlib, sys
 for name in {port_modules()!r}:
@@ -70,6 +71,8 @@ lg = get_model(dataclasses.replace(get_config("gemma3_27b").scaled_down(),
                                    n_layers=8), "cpu")
 logits, cache = lg.prefill(lg.init(0), dict(tokens=[[1] * 80]))
 assert logits.shape == (1, 1, 512) and sorted(cache) == ["full", "local", "pos", "tail"]
+moe = get_model(get_config("granite_moe_3b").scaled_down(), "cpu")
+assert moe.prefill(moe.init(0), dict(tokens=[[1] * 24]))[0].shape == (1, 1, 512)
 s = make_store("erda-cluster", n_shards=2, replication=2, device="cpu",
                cfg=ServerConfig(device_size=4 << 20, table_capacity=1 << 9,
                                 n_heads=2, region_size=256 << 10,

@@ -62,6 +62,24 @@ def test_rope_split_halves(positions):
     assert torch.equal(TB.apply_rope(tx, torch.from_numpy(positions), 0.0), tx)
 
 
+def test_rope_frequencies_are_the_reference_values_and_serve_training():
+    """One set of frequencies, the reference's float32 theta^(-2i/hd) to
+    the last place, from the CPU, made once per (head_dim, theta, device);
+    first asked for in
+    inference mode (serving), it still takes part in a backward pass."""
+    with torch.inference_mode():
+        freqs = TB.rope_frequencies(256, 1_000_000.0, torch.device("cpu"))
+    # XLA's pow and PyTorch's may differ in the last place (4 of 128 here)
+    np.testing.assert_allclose(freqs.numpy(),
+                               np.asarray(JB.rope_frequencies(256, 1_000_000.0)),
+                               rtol=2.4e-7, atol=0)
+    assert TB.rope_frequencies(256, 1_000_000.0, torch.device("cpu")) is freqs
+    assert not freqs.is_inference()
+    x = torch.ones(1, 3, 2, 256, requires_grad=True)
+    TB.apply_rope(x, torch.arange(3), 1_000_000.0).sum().backward()
+    assert x.grad.shape == x.shape
+
+
 @pytest.mark.parametrize("mlp_kind,act", [("swiglu", "silu"), ("gelu_mlp", "gelu")])
 def test_mlps(mlp_kind, act):
     c = cfg(mlp_kind=mlp_kind, act=act)

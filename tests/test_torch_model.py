@@ -126,8 +126,7 @@ def test_port_init_draws_reference_shapes_and_scales():
     assert abs(float(params["embed"]["table"].float().std()) - 0.02) < 1e-3
 
 
-@pytest.mark.parametrize("arch", ["mixtral_8x22b", "granite_moe_3b",
-                                  "rwkv6_1p6b", "whisper_small", "zamba2_1p2b"])
+@pytest.mark.parametrize("arch", ["rwkv6_1p6b", "whisper_small", "zamba2_1p2b"])
 def test_unported_families_name_the_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_model(get_config(arch).scaled_down(), CPU)

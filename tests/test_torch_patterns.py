@@ -30,7 +30,6 @@ from repro_torch.configs import get_config
 from repro_torch.core import ErdaStore as TStore
 from repro_torch.core import ServerConfig as TConfig
 from repro_torch.core.client import ErdaClient as TClient
-from repro_torch.kernels import flash_attention as flash
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as T
 from repro_torch.models import get_model
@@ -432,12 +431,3 @@ def test_vlm_and_local_global_serve_through_the_launcher():
         out = tserve.serve(arch, batch=1, prompt_len=8, tokens=3,
                            snapshot_every=1, crash_at=1, device="cpu")
         assert out.shape == (1, 3)
-
-
-def test_head_dim_256_raises_and_names_the_roadmap():
-    """gemma3_12b's hd = 256 has no flash route: the kernel's entry point
-    raises (the CPU runs the plain version; the card may not fall back)."""
-    q = torch.zeros(2, 8, 256, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        flash.flash_attention_cuda(q, q, q)
-    assert get_config("gemma3_12b").head_dim == 256

@@ -56,6 +56,25 @@ Phases, each printing one JSON line and raising on any mismatch:
               the flash kernel exactly once a global layer (8) at (16, 1536,
               256); first gemma3_12b scaled down with head_dim 256 on the
               card against the CPU;
+  serve_rwkv6  rwkv6_1p6b at its full config (24 layers, attention-free;
+              1.45e9 parameters): 4 requests x 1024 prompt tokens, 16 greedy
+              tokens, clean and preempted at token 10 — the tokens must be
+              equal, the restore must launch the CRC kernel and no prefill
+              the flash kernel; first rwkv6 scaled down on the card against
+              the CPU;
+  serve_zamba2  zamba2_1p2b at its full config (38 Mamba2 layers, the
+              shared attention block after each of 6 groups of 6; 1.10e9
+              parameters): 4 x 1024 prompt tokens, as serve_rwkv6 — each
+              prefill must launch the flash kernel exactly once a group (6)
+              at (128, 1024, 64); first zamba2 scaled down with a tail;
+  serve_whisper  whisper_small at its full config (12 + 12 layers; 0.24e9
+              parameters): 4 requests of 1500 frames and 64 decoder tokens
+              — each prefill must launch the flash kernel exactly 12 times
+              at (48, 1500, 64) (the encoder, not causal) and 12 at (48, 64,
+              64) (the decoder); the cross-attention stays plain; first
+              whisper scaled down on the card against the CPU;
+  each serve phase's parameters must number the family's exact count
+  (``exact_param_count``);
   train       olmo_1b at its full config trained by the port's trainer: 5
               steps of 4 x 2048 tokens with an Erda checkpoint of the whole
               train state (11.8 GB) after step 3, then a fresh trainer
@@ -111,6 +130,16 @@ GRANITE_RESTORE_CRC = (3, 37748755)
 #: ... of serve_gemma3_12b: rows padded to the ['local']['k'] leaf
 #: (167,772,160 B; 2 and 5 rows a shard in one run)
 GEMMA3_12B_RESTORE_CRC = (5, 41943060)
+#: ... of serve_rwkv6, serve_zamba2 and serve_whisper: rows padded to the
+#: ['layers']['tm']['h'] leaf (50,331,648 B), ['ssm_main']['h'] (150,994,944
+#: B) and ['cross']['k'] (110,592,000 B); as many rows as the cache has
+#: leaves (4, 8, 6), the most one shard's batch can hold
+RWKV6_RESTORE_CRC = (4, 12582931)
+ZAMBA2_RESTORE_CRC = (8, 37748755)
+WHISPER_RESTORE_CRC = (6, 27648019)
+
+#: a serve phase's limit on peak device memory (the card's 80 GB)
+PEAK_BYTES_LIMIT = 80e9
 
 #: the train phase's tolerance on resumed losses (the reference's, in
 #: tests/test_checkpoint.py) and on card-vs-CPU gradients (its model check)
@@ -123,6 +152,19 @@ GEMMA3_PREFILL_FLASH = {(32, 1536, 128, "bfloat16"): 10}
 GEMMA3_12B_PREFILL_FLASH = {(16, 1536, 256, "bfloat16"): 8}
 #: ... one serve_granite_moe prefill: every layer, 4 requests x 24 heads
 GRANITE_PREFILL_FLASH = {(96, 1024, 64, "bfloat16"): 32}
+#: ... one serve_rwkv6 prefill: none, rwkv6 has no attention
+RWKV6_PREFILL_FLASH = {}
+#: ... one serve_zamba2 prefill: the shared block once a group (6), 4
+#: requests x 32 heads; the 2 tail layers have no attention
+ZAMBA2_PREFILL_FLASH = {(128, 1024, 64, "bfloat16"): 6}
+#: ... one serve_whisper prefill: the 12 encoder layers over 1500 frames,
+#: not causal, and the 12 decoder self-attentions over 64 tokens, 4
+#: requests x 12 heads; the 12 cross-attentions (64 queries, 1500 keys)
+#: stay plain
+WHISPER_PREFILL_FLASH = {(48, 1500, 64, "bfloat16"): 12, (48, 64, 64, "bfloat16"): 12}
+#: launch keys of a main path whose attention is not causal (a launch key
+#: has no mask): whisper's encoder
+NON_CAUSAL_FLASH = {(48, 1500, 64, "bfloat16")}
 #: granite_moe_3b scaled down with top-8 of 16 experts in groups of 16, so
 #: k = 8 and several dispatch groups a row run on the card
 GRANITE_K8 = {"n_experts": 16, "n_experts_active": 8, "moe_group": 16}
@@ -143,7 +185,14 @@ MODEL_CHECKS = {"olmo_1b": dict(arch="olmo_1b", prompt_len=64),
                 "mixtral": dict(arch="mixtral_8x22b", prompt_len=100),
                 "gemma3_12b": dict(arch="gemma3_12b",
                                    overrides={"head_dim": 256, "n_layers": 8},
-                                   prompt_len=160)}
+                                   prompt_len=160),
+                # 40 tokens: the WKV and SSD chunks halve from 16 to 8
+                "rwkv6": dict(arch="rwkv6_1p6b", prompt_len=40),
+                # zamba2 with a tail: 2 groups of 2 ssm layers, then 1
+                "zamba2": dict(arch="zamba2_1p2b",
+                               overrides={"n_layers": 5, "shared_attn_every": 2},
+                               prompt_len=40),
+                "whisper": dict(arch="whisper_small", prompt_len=24)}
 TRAIN_CHECKS = {"olmo_1b": dict(arch="olmo_1b", seqs=(64, 640)),
                 "local_global": dict(LOCAL_GLOBAL, seqs=(160,)),
                 "pixtral": dict(arch="pixtral_12b", seqs=(24,)),
@@ -163,7 +212,9 @@ OLMO_1B = dict(d_model=2048, n_kv_heads=16, head_dim=128, d_ff=8192,
 #: against the plain version; (96, 1024, 64) is a serve_granite_moe prefill
 #: layer (4 requests x 24 heads), (16, 1536, 256) a serve_gemma3_12b global
 #: layer, and the other hd-256 rows its tile edge, a ragged non-causal tail
-#: and the CUDA-core route
+#: and the CUDA-core route; the last three a serve_zamba2 shared block, a
+#: serve_whisper encoder layer (not causal, ragged: 1500 = 23 x 64 + 28)
+#: and a serve_whisper decoder self-attention
 FLASH_SHAPES = [((64, 256, 128), "bfloat16", True),
                 ((64, 512, 128), "bfloat16", True),
                 ((32, 2048, 128), "bfloat16", True),
@@ -177,7 +228,10 @@ FLASH_SHAPES = [((64, 256, 128), "bfloat16", True),
                 ((16, 1536, 256), "bfloat16", True),
                 ((16, 65, 256), "bfloat16", True),
                 ((16, 100, 256), "bfloat16", False),
-                ((3, 192, 256), "float32", True)]
+                ((3, 192, 256), "float32", True),
+                ((128, 1024, 64), "bfloat16", True),
+                ((48, 1500, 64), "bfloat16", False),
+                ((48, 64, 64), "bfloat16", True)]
 #: max |kernel - plain| allowed, by dtype (the reference's tolerances)
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 
@@ -360,11 +414,12 @@ def crc_case(n: int, w: int, seed: int, dev, *, plain: bool = True) -> dict:
 
 def phase_crc32(dev, shapes=None, *, long=(120, 1048581),
                 serve=(SERVE_RESTORE_CRC, GEMMA3_RESTORE_CRC, GRANITE_RESTORE_CRC,
-                       GEMMA3_12B_RESTORE_CRC)) -> list:
+                       GEMMA3_12B_RESTORE_CRC, RWKV6_RESTORE_CRC, ZAMBA2_RESTORE_CRC,
+                       WHISPER_RESTORE_CRC)) -> list:
     """Kernel vs plain version vs zlib, exactly, at the listed shapes (the
     chunk-boundary widths among them); then 4 MiB records (a checkpoint
-    shard) and the batches of the serve, serve_gemma3, serve_granite_moe and
-    serve_gemma3_12b restores against zlib only — the plain version's per-byte loop would take minutes to hours at
+    shard) and the batches of every serve phase's restore against zlib
+    only — the plain version's per-byte loop would take minutes to hours at
     those widths."""
     from repro_torch.kernels.crc32 import CHUNK_UNITS
     c = 4 * CHUNK_UNITS  # words of one chunk of the kernel's first pass
@@ -811,7 +866,8 @@ def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
     store (``launch.serve.page_store_for``).  The tokens must be equal, and
     on the card the prefill must have launched the flash kernel — exactly
     ``flash_per_prefill`` ({launch key: count}) a prefill where given — and
-    the restore the CRC kernel.  ``probe(model, params, prompts)``, run
+    the restore the CRC kernel, and the peak device memory must stay under
+    ``PEAK_BYTES_LIMIT``.  ``probe(model, params, prompts)``, run
     before the main path, adds its dict to the result under "probe"."""
     import numpy as np
     import torch
@@ -881,7 +937,8 @@ def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
           "a token outside the vocabulary")
     check(np.array_equal(clean, preempted), "preempted tokens != clean tokens")
     check(len(times["preempted"]["restore_ms"]) == 1, "no restore ran")
-    check(dev.type == "cpu" or flash.launches > 0, "serve launched no flash kernel")
+    check(dev.type == "cpu" or flash.launches > 0 or flash_per_prefill == {},
+          "serve launched no flash kernel")
     routes = launches_by_route(flash.shapes)
     want_route = ROUTES[cfg.dtype]
     check(all(n == 0 for r, n in routes.items() if r != want_route),
@@ -892,6 +949,9 @@ def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
         want = {k: n * prefills for k, n in flash_per_prefill.items()}
         check(dict(flash.shapes) == want,
               f"flash launches {dict(flash.shapes)} over {prefills} prefills, want {want}")
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    check(peak is None or peak < PEAK_BYTES_LIMIT,
+          f"peak device memory {peak} B, not under {PEAK_BYTES_LIMIT}")
     mean = lambda xs: sum(xs) / len(xs)
     out = {"config": cfg.name, "params": n_params, "dtype": cfg.dtype,
            "attn_pattern": cfg.attn_pattern, "window": cfg.window,
@@ -900,7 +960,7 @@ def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
            "largest_cache_leaf_bytes": leaf_bytes, "largest_cache_leaf": leaf_path,
            "page_store": geometry, "tokens_equal": True, "prefills": prefills,
            "first_tokens": clean[0].tolist(), "profiled": busy, "probe": probed,
-           "max_memory_allocated": torch.cuda.max_memory_allocated(dev) if cuda else None}
+           "max_memory_allocated": peak}
     for run, t in times.items():
         out[run] = {"prefill_ms": t["prefill_ms"][0],
                     "decode_ms_per_token": mean(t["decode_ms"]),
@@ -915,12 +975,48 @@ def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
     return out
 
 
+def exact_param_count(cfg, max_seq: int = 4096) -> int:
+    """The parameter elements ``get_model(cfg).init(max_seq=max_seq)``
+    makes, in closed form.  ``ModelConfig.param_count`` is exact for the
+    transformer's families but for the norms' scales (two a layer, one
+    final); for the others it is approximate, so they are counted here:
+      ssm (rwkv6)   a layer: ln1, ln2; the time mix's 5 d x d, the decay
+                    LoRA (d x 64, 64 x d), 5 shift mixes, w0, u (H x hd = d)
+                    and its output norm; the channel mix's 2 shift mixes,
+                    d x d, d x f, f x d; plus ln_in and the final norm;
+      hybrid        an ssm layer: its norm, in_proj d x (2 di + 2 ds + nh),
+                    the conv (K, di + 2 ds), A_log, D, dt_bias (nh each),
+                    out_proj di x d, gate_norm di; one shared block (two
+                    norms, attention, MLP) and the final norm;
+      encdec        an encoder layer: 2 norms, attention, MLP; a decoder
+                    layer: 3 norms, self- and cross-attention, MLP; dec_pos
+                    (max_seq x d), the encoder's and the final norm.
+    The embedding is V x d, twice when untied."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    nrm = d if cfg.norm != "nonparam_ln" else 0
+    emb = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    attn = 2 * d * cfg.q_dim + 2 * d * cfg.kv_dim
+    mlp = (3 if cfg.mlp_kind == "swiglu" else 2) * d * f
+    if cfg.family == "ssm":
+        layer = 2 * nrm + 6 * d * d + 2 * d * f + 2 * 64 * d + 10 * d
+        return emb + 2 * nrm + L * layer
+    if cfg.family == "hybrid":
+        di, ds, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        ssm = (nrm + d * (2 * di + 2 * ds + nh) + cfg.ssm_conv * (di + 2 * ds)
+               + 3 * nh + di * d + di)
+        return emb + nrm + L * ssm + 2 * nrm + attn + mlp
+    if cfg.family == "encdec":
+        enc, dec = 2 * nrm + attn + mlp, 3 * nrm + 2 * attn + mlp
+        return emb + max_seq * d + cfg.encoder_layers * enc + L * dec + 2 * nrm
+    return cfg.param_count() + (2 * L + 1) * nrm
+
+
 def run_serve_full(dev, arch: str, *, cfg=None, restore_crc_words=None,
                    **kwargs) -> dict:
     """``run_serve`` at ``arch``'s full config (default; else ``cfg``), whose
-    parameters must number the config's count plus the norms' scales; on
-    the card at the full config the widest restore CRC row must be
-    ``restore_crc_words`` words where given."""
+    parameters must number ``exact_param_count``; on the card at the full
+    config the widest restore CRC row must be ``restore_crc_words`` words
+    where given."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     full = cfg is None
@@ -932,11 +1028,9 @@ def run_serve_full(dev, arch: str, *, cfg=None, restore_crc_words=None,
         check(widest == restore_crc_words,
               f"restore CRC rows of {widest} words, the crc32 phase checks "
               f"{restore_crc_words}")
-    # the config's count leaves out the norms' scales: two a layer, one final
-    norms = (2 * cfg.n_layers + 1) * cfg.d_model if cfg.norm != "nonparam_ln" else 0
-    check(out["params"] == cfg.param_count() + norms,
-          f"{out['params']} parameters, the config counts {cfg.param_count()} + {norms}")
-    return dict(out, config_param_count=cfg.param_count())
+    exact = exact_param_count(cfg)
+    check(out["params"] == exact, f"{out['params']} parameters, {exact} counted")
+    return dict(out, config_param_count=cfg.param_count(), exact_param_count=exact)
 
 
 def run_serve_gemma3(dev, *, cfg=None, prompt_len: int = 1536, **kwargs) -> dict:
@@ -983,6 +1077,39 @@ def run_serve_granite_moe(dev, *, cfg=None, batch: int = 4, prompt_len: int = 10
                           prompt_len=prompt_len, flash_per_prefill=GRANITE_PREFILL_FLASH,
                           probe=moe_prefill_drops,
                           restore_crc_words=GRANITE_RESTORE_CRC[1], **kwargs)
+
+
+def run_serve_rwkv6(dev, *, cfg=None, batch: int = 4, prompt_len: int = 1024,
+                    **kwargs) -> dict:
+    """rwkv6_1p6b's full config (default), ``batch`` x ``prompt_len``
+    tokens: attention-free, so each prefill must launch the flash kernel no
+    time; the restore's widest CRC row is ``RWKV6_RESTORE_CRC``'s width."""
+    return run_serve_full(dev, "rwkv6_1p6b", cfg=cfg, batch=batch, prompt_len=prompt_len,
+                          flash_per_prefill=RWKV6_PREFILL_FLASH,
+                          restore_crc_words=RWKV6_RESTORE_CRC[1], **kwargs)
+
+
+def run_serve_zamba2(dev, *, cfg=None, batch: int = 4, prompt_len: int = 1024,
+                     **kwargs) -> dict:
+    """zamba2_1p2b's full config (default: 6 groups of 6 Mamba2 layers and
+    the shared block, a tail of 2), ``batch`` x ``prompt_len`` tokens: each
+    prefill must launch the flash kernel exactly ``ZAMBA2_PREFILL_FLASH``;
+    the restore's widest CRC row is ``ZAMBA2_RESTORE_CRC``'s width."""
+    return run_serve_full(dev, "zamba2_1p2b", cfg=cfg, batch=batch, prompt_len=prompt_len,
+                          flash_per_prefill=ZAMBA2_PREFILL_FLASH,
+                          restore_crc_words=ZAMBA2_RESTORE_CRC[1], **kwargs)
+
+
+def run_serve_whisper(dev, *, cfg=None, batch: int = 4, prompt_len: int = 64,
+                      **kwargs) -> dict:
+    """whisper_small's full config (default), ``batch`` requests of
+    ``encoder_seq`` frames (1500: 30 s of audio, the stub frontend's) and
+    ``prompt_len`` decoder tokens: each prefill must launch the flash
+    kernel exactly ``WHISPER_PREFILL_FLASH`` (the encoder not causal); the
+    restore's widest CRC row is ``WHISPER_RESTORE_CRC``'s width."""
+    return run_serve_full(dev, "whisper_small", cfg=cfg, batch=batch,
+                          prompt_len=prompt_len, flash_per_prefill=WHISPER_PREFILL_FLASH,
+                          restore_crc_words=WHISPER_RESTORE_CRC[1], **kwargs)
 
 
 def run_train_check(dev, *, arch: str = "olmo_1b", overrides=None, batch: int = 2,
@@ -1161,21 +1288,27 @@ def flash_entry(dev, launches: int, shapes: dict, also=()) -> dict:
     """The flash kernel at the main path's most frequent launch (a serve
     prefill's shape and dtype), beside its plain version, SDPA and its
     bound; ``also`` lists other launch keys of the main paths reported the
-    same way (gemma3_12b's head_dim 256)."""
-    *shape, dtype = max(shapes, key=shapes.get)
-    case = flash_case(tuple(shape), dtype, True, seed=7, dev=dev)
+    same way (gemma3_12b's head_dim 256, zamba2's and whisper's).  A key in
+    ``NON_CAUSAL_FLASH`` is timed without the causal mask, as its path
+    launches it."""
+    main_key = max(shapes, key=shapes.get)
+    *shape, dtype = main_key
+    case = flash_case(tuple(shape), dtype, main_key not in NON_CAUSAL_FLASH, seed=7, dev=dev)
     more = []
-    for *other, odtype in also:
-        c = flash_case(tuple(other), odtype, True, seed=8, dev=dev)
-        more.append({k: c[k] for k in ("shape", "dtype", "max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms", "call_ms")}
-                    | {"launches": shapes.get((*other, odtype), 0)})
+    for key in also:
+        *other, odtype = key
+        c = flash_case(tuple(other), odtype, key not in NON_CAUSAL_FLASH, seed=8, dev=dev)
+        more.append({k: c[k] for k in ("shape", "dtype", "causal", "max_abs_err", "ms",
+                                       "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                       "call_ms")}
+                    | {"launches": shapes.get(key, 0)})
     return {"name": "flash_attention", "route": "cuda", "also": more,
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:70",
             "launches": launches, "matches_plain": True,
             "max_abs_err": case["max_abs_err"], "shape": list(shape),
-            "dtype": dtype, "ms": case["ms"], "plain_ms": case["plain_ms"],
+            "dtype": dtype, "causal": case["causal"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
             "library_ms": case["library_ms"], "call_ms": case["call_ms"]}
 
@@ -1200,7 +1333,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="device,crc32,flash_attention,kv_pages,"
                     "checkpoint,serve,serve_gemma3,serve_granite_moe,"
-                    "serve_gemma3_12b,train,kernels")
+                    "serve_gemma3_12b,serve_rwkv6,serve_zamba2,serve_whisper,"
+                    "train,kernels")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     import torch
@@ -1228,7 +1362,9 @@ def main(argv=None) -> int:
     runs = [("kv_pages", run_kv_pages), ("checkpoint", run_checkpoint),
             ("serve", run_serve), ("serve_gemma3", run_serve_gemma3),
             ("serve_granite_moe", run_serve_granite_moe),
-            ("serve_gemma3_12b", run_serve_gemma3_12b), ("train", run_train)]
+            ("serve_gemma3_12b", run_serve_gemma3_12b), ("serve_rwkv6", run_serve_rwkv6),
+            ("serve_zamba2", run_serve_zamba2), ("serve_whisper", run_serve_whisper),
+            ("train", run_train)]
     # the card against the CPU on small f32 configs, before the phase
     model_check = lambda label: ("model_check", label, run_model_check, MODEL_CHECKS[label])
     train_check = lambda label: ("train_check", label, run_train_check, TRAIN_CHECKS[label])
@@ -1236,6 +1372,9 @@ def main(argv=None) -> int:
               "serve_gemma3": [model_check("local_global"), model_check("pixtral")],
               "serve_granite_moe": [model_check("granite_moe"), model_check("mixtral")],
               "serve_gemma3_12b": [model_check("gemma3_12b")],
+              "serve_rwkv6": [model_check("rwkv6")],
+              "serve_zamba2": [model_check("zamba2")],
+              "serve_whisper": [model_check("whisper")],
               "train": [train_check(label) for label in TRAIN_CHECKS]}
     for name, run in runs:
         if name not in phases:
@@ -1258,9 +1397,11 @@ def main(argv=None) -> int:
         if crc_shapes:
             entries.append(crc_entry(dev, launches["crc32_batch"], crc_shapes))
         if shapes["flash_attention"]:
-            hd256 = [k for k in GEMMA3_12B_PREFILL_FLASH if k in shapes["flash_attention"]]
-            entries.append(flash_entry(dev, launches["flash_attention"],
-                                       shapes["flash_attention"], also=hd256))
+            fs = shapes["flash_attention"]
+            also = [k for table in (GEMMA3_12B_PREFILL_FLASH, ZAMBA2_PREFILL_FLASH,
+                                    WHISPER_PREFILL_FLASH)
+                    for k in table if k in fs and k != max(fs, key=fs.get)]
+            entries.append(flash_entry(dev, launches["flash_attention"], fs, also=also))
         print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

@@ -10,12 +10,22 @@ the port of ``repro/launch/serve.py``.
         --arch granite_moe_3b --prompt-len 1024
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda --scale full \
         --arch gemma3_12b --batch 1 --prompt-len 1536
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cuda --scale full \
+        --arch rwkv6_1p6b --prompt-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cuda --scale full \
+        --arch zamba2_1p2b --prompt-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cuda --scale full \
+        --arch whisper_small
 
-Weights are random, drawn from seed 0.  Every transformer family serves:
-dense, moe (granite_moe_3b, mixtral_8x22b) and vlm, with the full, swa and
-local_global patterns.  The page store is sized from the decode cache's
-leaves (``page_store_for``): a segment holds the largest, and
-each shard every snapshot of the run, under its 31-bit offsets.
+Weights are random, drawn from seed 0.  Every family of the repository's
+configs serves (``--arch``, any of ``configs.ARCH_IDS``): the transformer's
+dense, moe (granite_moe_3b, mixtral_8x22b) and vlm (pixtral_12b) families
+with the full, swa and local_global patterns; ssm (rwkv6_1p6b), hybrid
+(zamba2_1p2b) and encdec (whisper_small, whose prompts carry the stub
+frontend's ``frames``, 1500 of them at the full config).  The page store
+is sized from the decode cache's leaves (``page_store_for``): a segment
+holds the largest, and each shard every snapshot of the run, under its
+31-bit offsets.
 """
 from __future__ import annotations
 
@@ -25,13 +35,13 @@ import dataclasses
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import make_store
 from repro_torch.data import make_batch
 from repro_torch.launch.train import scale_config
 from repro_torch.models import get_model
-from repro_torch.models import transformer
+from repro_torch.models.registry import family_module
 from repro_torch.serving import ErdaKVPageStore, ServeEngine, page_shard_config
 from repro_torch.tree import flatten_with_path
 
@@ -39,12 +49,13 @@ from repro_torch.tree import flatten_with_path
 def snapshot_pages(cfg, batch: int, prompt_len: int, tokens: int):
     """(name, bytes) of every page a snapshot of a ``batch`` x
     ``prompt_len`` run writes, in order: the decode cache's leaves, from
-    the cache tree on the meta device, then the tokens page.  Prefill
-    caches carry no int8 scales, so the tree is ``init_cache``'s without
-    ``cache_quant``; a vlm prompt also holds the patch embeddings."""
+    the config's family's ``init_cache`` tree on the meta device, then the
+    tokens page.  Prefill caches carry no int8 scales, so the tree is made
+    without ``cache_quant``; a vlm prompt also holds the patch
+    embeddings."""
     seq = prompt_len + (cfg.n_patches if cfg.family == "vlm" else 0)
-    tree = transformer.init_cache(dataclasses.replace(cfg, cache_quant=False),
-                                  batch, seq, device="meta")
+    tree = family_module(cfg).init_cache(dataclasses.replace(cfg, cache_quant=False),
+                                         batch, seq, device="meta")
     return [(path, leaf.numel() * leaf.element_size())
             for path, leaf in flatten_with_path(tree)] + [("__tokens__", 4 * batch * tokens)]
 
@@ -77,7 +88,7 @@ def serve(arch="olmo_1b", scale="smoke", batch=4, prompt_len=64, tokens=16,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="olmo_1b")
+    ap.add_argument("--arch", default="olmo_1b", choices=ARCH_IDS)
     ap.add_argument("--scale", default="smoke", choices=["smoke", "100m", "full"])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)

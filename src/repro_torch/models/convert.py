@@ -1,10 +1,13 @@
 """The JAX package's model and train-state trees, and the port's.
 
 The reference keeps each layer's leaves stacked along leading axes for its
-scans; the port keeps lists of per-layer dicts: ``"layers"``,
-``"global_layers"`` and ``"tail_local"`` are lists of layers, (n, ...) in
-the reference, and local_global's ``"local_layers"`` a list of groups of
-layers, (G, local_per_global, ...).  ``to_reference_tree`` stacks the
+scans; the port keeps lists of per-layer dicts: ``"layers"`` (the
+transformer's and rwkv's), ``"global_layers"``, ``"tail_local"``,
+``"ssm_tail"``, ``"enc_layers"`` and ``"dec_layers"`` are lists of layers,
+(n, ...) in the reference, and local_global's ``"local_layers"`` and the
+hybrid's ``"ssm_main"`` lists of groups of layers, (G, local_per_global,
+...) and (G, every, ...).  The hybrid's ``"shared"`` block is one block,
+not a stack.  ``to_reference_tree`` stacks the
 port's lists into the reference's leaves and ``from_reference_tree`` splits
 them back, so a checkpoint of the port's train state has the reference's
 leaf paths (``['opt']['m']['local_layers']['attn']['wq']``) and either
@@ -26,21 +29,20 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint.serialization import to_tensor
-from repro_torch.models.transformer import check_supported
-from repro_torch.tree import flatten_with_path, map_leaves, unflatten
+from repro_torch.models.registry import family_module
+from repro_torch.tree import flatten_with_path, map_leaves, stack_trees, unflatten
 
 
 #: key of a stack of layers -> the list levels it has in the port (the
 #: leading axes its leaves have in the reference)
-LAYER_STACKS = {"layers": 1, "global_layers": 1, "tail_local": 1, "local_layers": 2}
+LAYER_STACKS = {"layers": 1, "global_layers": 1, "tail_local": 1, "local_layers": 2,
+                "ssm_main": 2, "ssm_tail": 1, "enc_layers": 1, "dec_layers": 1}
 
 
 def _stack(sub, depth: int):
     if depth == 0:
         return sub
-    items = [_stack(item, depth - 1) for item in sub]
-    per_item = [[leaf for _p, leaf in flatten_with_path(item)] for item in items]
-    return unflatten(items[0], [torch.stack(ts) for ts in zip(*per_item)])
+    return stack_trees([_stack(item, depth - 1) for item in sub])
 
 
 def _split(sub, depth: int):
@@ -73,7 +75,7 @@ def from_reference_tree(tree):
 def train_state_from_numpy(tree: Dict, cfg, device="cuda") -> Dict:
     """The JAX package's ``{"params", "opt": {"m", "v", "step"}}`` as the
     port's train state, copied onto ``device``."""
-    check_supported(cfg)
+    family_module(cfg)  # raises for a family no module serves
     dev = resolve_device(device)
     return from_reference_tree(map_leaves(lambda a: to_tensor(a).to(dev, copy=True), tree))
 

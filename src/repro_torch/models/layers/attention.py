@@ -12,9 +12,8 @@ prefill attention goes through the flash kernel on the card
 (``models.transformer.block_fwd``), except a window layer longer than its
 window, which runs ``banded_attention`` here on every device (the
 reference's kernel has no window either).  The reference's sharding hints
-(``constrain_batch*``) are no-ops without a mesh and are dropped.
-Cross-attention inputs (encdec) and query offsets, which only other
-families use, come with their slices.
+(``constrain_batch*``) are no-ops without a mesh and are dropped, and so
+are the query offsets, which no family's path passes.
 """
 from __future__ import annotations
 
@@ -40,15 +39,21 @@ def init_attention(cfg, gen: torch.Generator) -> Dict:
     }
 
 
-def qkv(params: Dict, x: torch.Tensor, cfg, positions=None):
-    """Project (+RoPE).  Returns q:(B,S,H,hd), k/v:(B,S,KV,hd)."""
+def qkv(params: Dict, x: torch.Tensor, cfg, positions=None, *, kv_x=None):
+    """Project (+RoPE).  Returns q:(B,S,H,hd), k/v:(B,Skv,KV,hd): keys and
+    values from ``kv_x`` when given (cross-attention; its keys are not
+    rotated), else from ``x``.  No rotation without ``positions`` or with
+    ``rope_theta`` 0 (whisper), and then no frequencies are built."""
     B, S, _ = x.shape
+    src = x if kv_x is None else kv_x
+    Skv = src.shape[1]
     q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = (x @ params["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ params["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    k = (src @ params["wk"]).reshape(B, Skv, cfg.n_kv_heads, cfg.head_dim)
+    v = (src @ params["wv"]).reshape(B, Skv, cfg.n_kv_heads, cfg.head_dim)
     if positions is not None and cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if kv_x is None:
+            k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 

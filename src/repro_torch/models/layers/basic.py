@@ -9,7 +9,6 @@ distributions do not) and creates each tensor on the current default
 device: ``registry.get_model``'s init sets it to the model's device, and a
 ``torch.device("meta")`` context gives shapes without storage.  The reference's ``scan_layers`` becomes a plain loop in
 ``models.transformer``, and ``jax.checkpoint`` becomes ``remat``.
-``sinusoidal_positions`` serves only the encdec family and comes with it.
 """
 from __future__ import annotations
 
@@ -41,6 +40,16 @@ def dense_init(gen: torch.Generator, shape, dtype,
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     w = torch.randn(shape, generator=gen, dtype=torch.float32)
     return (w * scale).to(dtype)
+
+
+def halved_chunk(chunk: int, S: int) -> int:
+    """The reference's chunk over S steps: ``min(chunk, S)`` halved until it
+    divides S (the loss, ``wkv_chunked``, ``ssm_chunked``).  Another
+    chunking would round differently."""
+    c = min(chunk, S)
+    while S % c:
+        c //= 2
+    return c
 
 
 # ----------------------------------------------------------------------- norms
@@ -93,6 +102,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def sinusoidal_positions(seq: int, d_model: int, device=None) -> torch.Tensor:
+    """(seq, d_model) float32 [sin | cos] of pos / 10000^(2i/d_model) (the
+    encdec family's encoder positions), computed on the CPU and copied to
+    ``device`` once, as ``rope_frequencies`` is: the card's ``sin``,
+    ``cos`` and ``pow`` may differ from the CPU's in the last place.  The
+    denominators are rounded once from float64, which meets XLA's float32
+    ``pow`` on all but one of whisper's 384 (torch's float32 ``pow``
+    misses four).  Shared, never written, and made outside inference
+    mode."""
+    with torch.inference_mode(False):
+        pos = torch.arange(seq, dtype=torch.float32)[:, None]
+        exps = torch.arange(0, d_model, 2, dtype=torch.float32)[None, :] / d_model
+        den = torch.pow(torch.tensor(10_000.0, dtype=torch.float64), exps.double())
+        angle = pos / den.float()
+        return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(device)
 
 
 # ------------------------------------------------------------------------- mlp
@@ -166,9 +193,7 @@ def lm_loss_chunked(embed_params: Dict, x: torch.Tensor, tokens: torch.Tensor,
     targets = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
     weights = torch.cat([torch.ones((B_, S - 1), dtype=torch.float32, device=x.device),
                          torch.zeros((B_, 1), dtype=torch.float32, device=x.device)], dim=1)
-    c = min(chunk, S)
-    while S % c:
-        c //= 2
+    c = halved_chunk(chunk, S)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(S // c):
         sl = slice(i * c, (i + 1) * c)

@@ -1,18 +1,20 @@
-"""Model registry: the reference's functional interface for the families the
-port has (``repro/models/registry.py``).
+"""Model registry: the reference's functional interface for every family
+(``repro/models/registry.py``).
 
 get_model(cfg, device) -> namespace with:
-  init(key=0)                          — parameters; key is a seed or a
-                                         ``torch.Generator`` on ``device``
-  init_abstract()                      — the parameters' tree, shapes and
+  init(key=0, max_seq=4096)            — parameters; key is a seed or a
+                                         ``torch.Generator`` on ``device``;
+                                         ``max_seq`` sizes encdec's decoder
+                                         positions and nothing else
+  init_abstract(max_seq=4096)          — the parameters' tree, shapes and
                                          dtypes on the meta device (no storage)
   train_loss(params, batch)            — scalar loss
   prefill(params, batch)               — (last_logits, cache)
   decode_step(params, cache, token)
   init_cache(batch_size, seq_len)      — empty cache on ``device``
-The transformer serves the dense, moe and vlm families, as the reference's
-``_family_module`` routes them; the other families (ssm, hybrid, encdec)
-raise ``NotImplementedError``.
+``family_module`` routes a config as the reference's ``_family_module``
+does: the transformer serves the dense, moe and vlm families,
+``rwkv_model`` the ssm family, ``hybrid`` and ``encdec`` theirs.
 """
 from __future__ import annotations
 
@@ -23,32 +25,49 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, hybrid, rwkv_model, transformer
+
+
+def family_module(cfg: ModelConfig):
+    if cfg.family in ("dense", "moe", "vlm"):
+        return transformer
+    if cfg.family == "encdec":
+        return encdec
+    if cfg.family == "hybrid":
+        return hybrid
+    if cfg.family == "ssm":
+        return rwkv_model
+    raise ValueError(f"unknown family {cfg.family}")
 
 
 def get_model(cfg: ModelConfig, device="cuda") -> SimpleNamespace:
-    transformer.check_supported(cfg)
+    mod = family_module(cfg)
     dev = resolve_device(device)
 
-    def init(key=0):
+    def build(gen, max_seq):
+        if cfg.family == "encdec":
+            return mod.init_lm(cfg, gen, max_seq)
+        return mod.init_lm(cfg, gen)
+
+    def init(key=0, max_seq: int = 4096):
         gen = key if isinstance(key, torch.Generator) \
             else torch.Generator(device=dev).manual_seed(int(key))
         if gen.device.type != dev.type:
             raise ValueError(f"generator on {gen.device}, model on {dev}")
         with torch.device(dev):
-            return transformer.init_lm(cfg, gen)
+            return build(gen, max_seq)
 
-    def init_abstract():
+    def init_abstract(max_seq: int = 4096):
         with torch.device("meta"):
-            return transformer.init_lm(cfg, torch.Generator())
+            return build(torch.Generator(), max_seq)
 
     return SimpleNamespace(
         cfg=cfg,
         device=dev,
         init=init,
         init_abstract=init_abstract,
-        train_loss=functools.partial(transformer.train_loss, cfg),
-        prefill=functools.partial(transformer.prefill, cfg),
-        decode_step=functools.partial(transformer.decode_step, cfg),
-        init_cache=functools.partial(transformer.init_cache, cfg, device=dev),
+        train_loss=functools.partial(mod.train_loss, cfg),
+        prefill=functools.partial(mod.prefill, cfg),
+        decode_step=functools.partial(mod.decode_step, cfg),
+        init_cache=functools.partial(mod.init_cache, cfg, device=dev),
     )

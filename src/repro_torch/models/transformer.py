@@ -44,13 +44,14 @@ backward (nor has the reference's), and its wrapper refuses inputs that
 require a gradient.  With ``cfg.remat == "full"`` each layer is
 rematerialized in the backward pass, as the reference's scan body is, and
 for local_global the whole group as well.  Decode drops the aux loss, as
-the reference's does.  The non-transformer families (ssm, hybrid, encdec)
-are not ported yet: ``check_supported`` raises ``NotImplementedError`` for
-them.
+the reference's does.  The other families have modules of their own
+(``rwkv_model``, ``hybrid``, ``encdec``), which reuse ``block_fwd``,
+``block_decode``, ``self_attention`` and the cache helpers here, as the
+reference's import its.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,16 +60,17 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import attention as A
 from repro_torch.models.layers import basic as B
 from repro_torch.models.layers import moe as M
+from repro_torch.tree import index_tree, stack_trees
 
 CACHE_PAD = 128  # decode caches get S + CACHE_PAD capacity
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what the port does not have yet."""
+    """Raise ``ValueError`` for a config of another family than the
+    transformer's (``models.registry`` routes those)."""
     if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} not ported to repro_torch yet "
-            f"(ROADMAP.md, Queue 1)")
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not the "
+                         f"transformer's (models.registry routes it)")
 
 
 # ---------------------------------------------------------------------- blocks
@@ -100,6 +102,21 @@ def _mix(cfg, p, x, attn_out, *, aux: bool = True):
     return x + M.apply_moe(p["moe"], h, cfg), loss
 
 
+def self_attention(cfg, q, k, v, *, flash: bool, causal: bool = True):
+    """Same-length attention over a whole sequence, q (B,S,H,hd), k/v
+    (B,S,KV,hd): the flash kernel when ``flash`` (KV repeated for GQA),
+    else the reference's plain branch — dense when not causal or up to 512
+    tokens, chunked above."""
+    if flash:
+        G = cfg.n_heads // cfg.n_kv_heads
+        kr, vr = (k, v) if G == 1 else (k.repeat_interleave(G, dim=2),
+                                        v.repeat_interleave(G, dim=2))
+        return ops.flash_attention(q, kr, vr, causal=causal)
+    if not causal or q.shape[1] <= 512:
+        return A.full_attention(q, k, v, causal=causal)
+    return A.chunked_attention(q, k, v, cfg, causal=True)
+
+
 def block_fwd(cfg, p, x, positions, kind: str, *, flash: bool,
               aux: bool = True) -> Tuple[torch.Tensor, Tuple, torch.Tensor]:
     """One layer over the whole sequence; returns (x, (k, v), aux loss, None
@@ -112,15 +129,8 @@ def block_fwd(cfg, p, x, positions, kind: str, *, flash: bool,
     q, k, v = A.qkv(p["attn"], h, cfg, positions)
     if kind == "window" and cfg.window and S > cfg.window:
         o = A.banded_attention(q, k, v, cfg, window=cfg.window)
-    elif flash:
-        G = cfg.n_heads // cfg.n_kv_heads
-        kr, vr = (k, v) if G == 1 else (k.repeat_interleave(G, dim=2),
-                                        v.repeat_interleave(G, dim=2))
-        o = ops.flash_attention(q, kr, vr, causal=True)
-    elif S <= 512:
-        o = A.full_attention(q, k, v, causal=True)
     else:
-        o = A.chunked_attention(q, k, v, cfg, causal=True)
+        o = self_attention(cfg, q, k, v, flash=flash)
     o = o.reshape(B_, S, cfg.q_dim)
     x, loss = _mix(cfg, p, x, o, aux=aux)
     return x, (k, v), loss
@@ -386,14 +396,6 @@ def init_cache(cfg, batch_size: int, seq_len: int, device) -> Dict:
     return cache
 
 
-def _layer_cache(stacked: Dict, idx) -> Dict:
-    return {name: t[idx] for name, t in stacked.items()}
-
-
-def _stack_caches(caches: List[Dict]) -> Dict:
-    return {name: torch.stack([c[name] for c in caches]) for name in caches[0]}
-
-
 def decode_step(cfg, params, cache, token):
     """token: (B,1) int -> (logits (B,1,V), new cache)."""
     pos = cache["pos"]
@@ -402,20 +404,20 @@ def decode_step(cfg, params, cache, token):
     def run(kind, layers, stacked, h):
         new = []
         for i, lp in enumerate(layers):
-            h, nc = block_decode(cfg, lp, h, _layer_cache(stacked, i), pos, kind)
+            h, nc = block_decode(cfg, lp, h, index_tree(stacked, i), pos, kind)
             new.append(nc)
-        return h, _stack_caches(new)
+        return h, stack_trees(new)
 
     new_cache = {"pos": pos + 1}
     if cfg.attn_pattern == "local_global":
         local, full = [], []
         for g, (lps, gp) in enumerate(zip(params["local_layers"],
                                           params["global_layers"])):
-            x, nl = run("window", lps, _layer_cache(cache["local"], g), x)
-            x, nf = block_decode(cfg, gp, x, _layer_cache(cache["full"], g), pos, "full")
+            x, nl = run("window", lps, index_tree(cache["local"], g), x)
+            x, nf = block_decode(cfg, gp, x, index_tree(cache["full"], g), pos, "full")
             local.append(nl)
             full.append(nf)
-        new_cache.update(local=_stack_caches(local), full=_stack_caches(full))
+        new_cache.update(local=stack_trees(local), full=stack_trees(full))
         if "tail_local" in params:
             x, new_cache["tail"] = run("window", params["tail_local"], cache["tail"], x)
     else:

@@ -7,8 +7,8 @@ their dtype, as ``jax.grad`` gives them).  Microbatch gradients accumulate
 into float32 zeros and are scaled by ``1/n`` afterwards, and the schedule is
 evaluated at the pre-update step, as in the reference.  The reference's
 ``lax.scan`` over microbatches is a plain loop here, so its ``unroll_micro``
-has no counterpart; ``max_seq`` waits for encdec, the one family whose
-parameters it sizes.
+has no counterpart.  ``max_seq`` reaches ``model.init``, which only the
+encdec family's decoder positions use.
 """
 from __future__ import annotations
 
@@ -22,17 +22,17 @@ from repro_torch.tree import flatten_with_path, map_leaves, unflatten
 TrainState = Dict[str, Any]  # {"params": ..., "opt": {m, v, step}}
 
 
-def make_train_state(model, key=0) -> TrainState:
-    """Parameters from ``model.init(key)`` and zeroed AdamW state, on the
-    model's device."""
-    params = model.init(key)
+def make_train_state(model, key=0, max_seq: int = 4096) -> TrainState:
+    """Parameters from ``model.init(key, max_seq)`` and zeroed AdamW state,
+    on the model's device."""
+    params = model.init(key, max_seq=max_seq)
     return {"params": params, "opt": adamw_init(params)}
 
 
-def make_train_state_abstract(model) -> TrainState:
+def make_train_state_abstract(model, max_seq: int = 4096) -> TrainState:
     """The train state's tree, shapes and dtypes on the meta device: a
     restore template that allocates nothing."""
-    params = model.init_abstract()
+    params = model.init_abstract(max_seq=max_seq)
     return {"params": params, "opt": adamw_init(params)}
 
 

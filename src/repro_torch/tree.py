@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, Iterator, List, Sequence, Tuple
 
+import torch
+
 
 def _children(node) -> Iterator[Tuple[str, Any]]:
     if isinstance(node, dict):
@@ -56,3 +58,16 @@ def unflatten(template, leaves: Sequence[Any]):
 
 def map_leaves(fn: Callable[[Any], Any], tree):
     return unflatten(tree, [fn(leaf) for _path, leaf in flatten_with_path(tree)])
+
+
+def stack_trees(trees: Sequence[Any]):
+    """Trees of one structure as one tree whose leaves are their leaves
+    stacked along a new leading axis (what a ``lax.scan`` over layers
+    returns)."""
+    per_tree = [[leaf for _p, leaf in flatten_with_path(t)] for t in trees]
+    return unflatten(trees[0], [torch.stack(ts) for ts in zip(*per_tree)])
+
+
+def index_tree(tree, i):
+    """``tree`` with every leaf indexed by ``i`` along its leading axis."""
+    return map_leaves(lambda t: t[i], tree)

@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -394,3 +395,159 @@ def test_kernels_line_reports_the_head_dim_256_shape():
     assert hd256["shape"] == [1, 24, 256] and hd256["launches"] == 1
     assert hd256["max_abs_err"] == 0.0 and hd256["ms"] is None
     assert {"bound_ms", "bound_by", "plain_ms", "library_ms"} <= set(hd256)
+
+
+# ------------------------------------------- the rwkv, hybrid and encdec phases
+#: narrow widths for the serve rehearsals: their restores run the plain CRC
+TINY_WIDTHS = dict(d_model=64, n_heads=2, n_kv_heads=2, head_dim=16, d_ff=64,
+                   vocab_size=64)
+#: each new serve phase, its config's narrowing, and its largest cache leaf
+#: at 2 requests x 16 tokens
+NEW_SERVE = {
+    "rwkv6": (chip_smoke.run_serve_rwkv6, "rwkv6_1p6b", {},
+              "['layers']['tm']['h']", 4 * 2 * 2 * 32 * 32 * 4),
+    "zamba2": (chip_smoke.run_serve_zamba2, "zamba2_1p2b",
+               dict(n_layers=5, shared_attn_every=2, ssm_head_dim=16, ssm_state=8),
+               "['attn']['k']", 2 * 2 * (16 + 128) * 2 * 16 * 2),
+    "whisper": (chip_smoke.run_serve_whisper, "whisper_small",
+                dict(n_layers=2, encoder_layers=1), "['self']['k']",
+                2 * 2 * (16 + 128) * 2 * 16 * 2)}
+
+
+@pytest.mark.parametrize("label", sorted(NEW_SERVE))
+def test_new_serve_phases_on_cpu(label):
+    """Each new serve phase on its family's scaled-down config (zamba2 with
+    a tail), narrowed: tokens equal through a preemption, the exact
+    parameter count checked, no flash launch off the card."""
+    from repro_torch.configs import get_config
+    run, arch, extra, leaf, nbytes = NEW_SERVE[label]
+    cfg = dataclasses.replace(get_config(arch).scaled_down(), **TINY_WIDTHS, **extra)
+    out = run(torch.device("cpu"), cfg=cfg, batch=2, prompt_len=16, tokens=6,
+              snapshot_every=2, crash_at=3)
+    assert out["tokens_equal"] and out["prefills"] == 2
+    assert out["params"] == out["exact_param_count"] == chip_smoke.exact_param_count(cfg)
+    assert out["largest_cache_leaf"] == leaf and out["largest_cache_leaf_bytes"] == nbytes
+    assert out["flash_attention"]["launches"] == 0
+    assert out["max_memory_allocated"] is None
+
+
+@pytest.mark.parametrize("label", ["rwkv6", "zamba2", "whisper"])
+def test_model_check_on_cpu_for_the_new_families(label):
+    out = chip_smoke.run_model_check(torch.device("cpu"), batch=1, steps=2,
+                                     **chip_smoke.MODEL_CHECKS[label])
+    assert out["max_abs_err"] == 0.0
+    assert out["family"] == {"rwkv6": "ssm", "zamba2": "hybrid", "whisper": "encdec"}[label]
+
+
+def reference_param_count(arch, **kw):
+    """Elements of the JAX package's ``init`` tree, from its shapes only."""
+    import jax
+    from repro.configs import get_config as j_get_config
+    from repro.models import get_model as j_get_model
+    cfg = dataclasses.replace(j_get_config(arch), **kw)
+    tree = jax.eval_shape(lambda: j_get_model(cfg).init(jax.random.PRNGKey(0)))
+    return sum(int(np.prod(leaf.shape)) for leaf in jax.tree.leaves(tree))
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("rwkv6_1p6b", {}), ("zamba2_1p2b", {}), ("whisper_small", {}),
+    ("zamba2_1p2b", dict(n_layers=5, shared_attn_every=2, d_model=128)),
+    ("rwkv6_1p6b", dict(n_layers=2, d_model=128, n_heads=4, d_ff=256)),
+    ("whisper_small", dict(encoder_layers=3, n_layers=2, tie_embeddings=False)),
+    ("olmo_1b", {}), ("gemma3_27b", {}), ("granite_moe_3b", {})])
+def test_exact_param_count_equals_the_reference_tree(arch, kw):
+    """The closed form against the JAX package's ``jax.eval_shape(init)``
+    tree (max_seq 4096, its default) and the port's own on the meta device;
+    ``ModelConfig.param_count`` is approximate for the new families."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.tree import flatten_with_path
+    cfg = dataclasses.replace(get_config(arch), **kw)
+    want = reference_param_count(arch, **kw)
+    assert chip_smoke.exact_param_count(cfg) == want
+    port = get_model(cfg, "cpu").init_abstract()
+    assert sum(t.numel() for _p, t in flatten_with_path(port)) == want
+    if cfg.family in ("ssm", "hybrid", "encdec") and not kw:
+        assert want != cfg.param_count()
+
+
+def test_full_config_exact_param_counts():
+    from repro_torch.configs import get_config
+    counts = {a: chip_smoke.exact_param_count(get_config(a))
+              for a in ("rwkv6_1p6b", "zamba2_1p2b", "whisper_small")}
+    assert counts == {"rwkv6_1p6b": 1_449_725_952, "zamba2_1p2b": 1_104_777_344,
+                      "whisper_small": 241_206_528}
+
+
+def restore_row_words(shape, dtype: str) -> int:
+    """Words of one CRC row of a cache leaf's page record: the record
+    header (11 B) and key (8 B), the leaf's header length (4 B), its JSON
+    header and its bytes, padded to whole words."""
+    import json
+    import math
+    meta = json.dumps({"dtype": dtype, "shape": list(shape)})
+    item = {"bfloat16": 2, "float32": 4, "int32": 4}[dtype]
+    return (11 + 8 + 4 + len(meta) + math.prod(shape) * item + 3) // 4
+
+
+@pytest.mark.parametrize("arch,batch,prompt_len,want", [
+    ("olmo_1b", 4, 256, chip_smoke.SERVE_RESTORE_CRC),
+    ("granite_moe_3b", 4, 1024, chip_smoke.GRANITE_RESTORE_CRC),
+    ("rwkv6_1p6b", 4, 1024, chip_smoke.RWKV6_RESTORE_CRC),
+    ("zamba2_1p2b", 4, 1024, chip_smoke.ZAMBA2_RESTORE_CRC),
+    ("whisper_small", 4, 64, chip_smoke.WHISPER_RESTORE_CRC)])
+def test_restore_crc_widths_follow_the_cache_trees(arch, batch, prompt_len, want):
+    """Each serve phase's widest restore row, from its family's cache tree
+    on the meta device (``launch.serve.snapshot_pages``'s tree); the new
+    phases' row counts are their caches' leaf counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import family_module
+    from repro_torch.tree import flatten_with_path
+    cfg = get_config(arch)
+    tree = family_module(cfg).init_cache(cfg, batch, prompt_len, device="meta")
+    leaves = flatten_with_path(tree)
+    widest = max(restore_row_words(tuple(t.shape), str(t.dtype).removeprefix("torch."))
+                 for _p, t in leaves)
+    assert widest == want[1]
+    if cfg.family in ("ssm", "hybrid", "encdec"):
+        assert want[0] == len(leaves)
+    assert want in chip_smoke.phase_crc32.__kwdefaults__["serve"]
+
+
+def test_zamba2_and_whisper_prefill_flash_keys_and_bounds():
+    """zamba2: the shared block once a group, 4 requests x 32 heads at 1024
+    tokens; whisper: 12 encoder layers (not causal) at 1500 frames and 12
+    decoder layers at 64 tokens, 4 x 12 heads; rwkv6: none."""
+    from repro_torch.configs import get_config
+    z, w = get_config("zamba2_1p2b"), get_config("whisper_small")
+    G = z.n_layers // z.shared_attn_every
+    assert (G, z.n_layers - G * z.shared_attn_every) == (6, 2)
+    assert chip_smoke.ZAMBA2_PREFILL_FLASH == {(4 * z.n_heads, 1024, z.head_dim,
+                                                "bfloat16"): G}
+    assert chip_smoke.WHISPER_PREFILL_FLASH == {
+        (4 * w.n_heads, w.encoder_seq, w.head_dim, "bfloat16"): w.encoder_layers,
+        (4 * w.n_heads, 64, w.head_dim, "bfloat16"): w.n_layers}
+    assert chip_smoke.NON_CAUSAL_FLASH == {(48, 1500, 64, "bfloat16")}
+    assert chip_smoke.RWKV6_PREFILL_FLASH == {}
+    for shape, dtype, causal in (((128, 1024, 64), "bfloat16", True),
+                                 ((48, 1500, 64), "bfloat16", False),
+                                 ((48, 64, 64), "bfloat16", True)):
+        assert (shape, dtype, causal) in chip_smoke.FLASH_SHAPES
+    ms, by = chip_smoke.flash_bound_ms(48, 1500, 64, "bfloat16", False)
+    assert by == "operations"
+    assert ms == pytest.approx(4 * 48 * 1500**2 * 64 / 989e12 * 1e3)
+    ms, by = chip_smoke.flash_bound_ms(48, 64, 64, "bfloat16", True)
+    assert by == "bytes"
+
+
+def test_kernels_line_times_a_non_causal_key_without_the_mask(monkeypatch):
+    """A main-path key in ``NON_CAUSAL_FLASH`` (whisper's encoder) is timed
+    as its path launches it, without the causal mask."""
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(chip_smoke, "NON_CAUSAL_FLASH", {(2, 30, 32, "float32")})
+    flash = chip_smoke.flash_entry(cpu, 5, {(2, 30, 32, "float32"): 3,
+                                            (1, 8, 32, "float32"): 2},
+                                   also=[(1, 8, 32, "float32")])
+    assert flash["shape"] == [2, 30, 32] and flash["causal"] is False
+    (other,) = flash["also"]
+    assert other["causal"] is True and other["launches"] == 2

@@ -280,3 +280,82 @@ def test_pattern_train_step_on_card_matches_cpu(cuda_device, arch, kw, seq):
     for (p, a), (_q, b) in zip(flatten_with_path(got_g), flatten_with_path(want_g)):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=3e-5, atol=3e-5,
                                    err_msg=p)
+
+
+#: the rwkv, hybrid (with a tail) and encdec families: scaled-down config
+#: overrides, prompt length, and the flash launches a prefill makes
+FAMILIES = [("rwkv6_1p6b", {}, 40, 0),
+            ("zamba2_1p2b", {"n_layers": 5, "shared_attn_every": 2}, 40, 2),
+            ("whisper_small", {}, 24, 2 + 4)]  # 2 encoder + 4 decoder layers
+
+
+@pytest.mark.parametrize("arch,kw,seq,flash_calls", FAMILIES)
+def test_family_prefill_and_decode_on_card_match_cpu(cuda_device, arch, kw, seq,
+                                                     flash_calls):
+    """Prefill (the shared block's and the encoder's and decoder's
+    self-attention through the flash kernel) and four decode steps, f32, on
+    the card against the CPU within 3e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).scaled_down(), dtype="float32", **kw)
+    params = get_model(cfg, "cpu").init(0)
+    batch = make_batch(cfg, ShapeConfig("t", seq, 2, "prefill"))
+    runs = []
+    with torch.inference_mode():
+        for dev in (cuda_device, torch.device("cpu")):
+            model = get_model(cfg, dev)
+            p = map_leaves(lambda t: t.to(dev), params)
+            before = ops.COUNTS["flash_attention"].launches
+            logits, cache = model.prefill(p, batch)
+            if dev.type == "cuda":
+                assert ops.COUNTS["flash_attention"].launches == before + flash_calls
+            outs = [logits]
+            for _ in range(4):
+                token = torch.argmax(logits, dim=-1).to(torch.int32)
+                logits, cache = model.decode_step(p, cache, token)
+                outs.append(logits)
+            runs.append(outs)
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a.cpu(), b, rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("arch,kw,seq,_flash", FAMILIES)
+def test_family_train_step_on_card_matches_cpu(cuda_device, arch, kw, seq, _flash):
+    """The loss and every gradient on the card against the CPU within 3e-5,
+    every layer rematerialized; training launches no flash kernel."""
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tree import flatten_with_path
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch).scaled_down(), dtype="float32",
+                              remat="full", **kw)
+    params = get_model(cfg, "cpu").init(0)
+    batch = make_batch(cfg, ShapeConfig("t", seq, 2, "train"))
+    want_l, want_g = loss_and_grads(get_model(cfg, "cpu").train_loss, params, batch)
+    before = ops.COUNTS["flash_attention"].launches
+    got_l, got_g = loss_and_grads(get_model(cfg, cuda_device).train_loss,
+                                  map_leaves(lambda t: t.to(cuda_device), params), batch)
+    assert ops.COUNTS["flash_attention"].launches == before
+    np.testing.assert_allclose(got_l.item(), want_l.item(), rtol=3e-5, atol=3e-5)
+    for (p, a), (_q, b) in zip(flatten_with_path(got_g), flatten_with_path(want_g)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=3e-5, atol=3e-5,
+                                   err_msg=p)
+
+
+@pytest.mark.parametrize("arch,kw,seq,flash_calls", FAMILIES[1:])
+def test_family_bf16_prefill_takes_the_tensor_core_route(cuda_device, arch, kw, seq,
+                                                         flash_calls):
+    """bf16: every flash launch of a zamba2 or whisper prefill is on the
+    wgmma route, and whisper's encoder launches at its 32 frames."""
+    cfg = dataclasses.replace(get_config(arch).scaled_down(), **kw)
+    model = get_model(cfg, cuda_device)
+    batch = make_batch(cfg, ShapeConfig("t", seq, 2, "prefill"))
+    count = ops.COUNTS["flash_attention"]
+    before = dict(count.shapes)
+    with torch.inference_mode():
+        logits, _ = model.prefill(model.init(0), batch)
+    assert bool(torch.isfinite(logits.float()).all())
+    new = {k: n - before.get(k, 0) for k, n in count.shapes.items() if n != before.get(k, 0)}
+    assert sum(new.values()) == flash_calls
+    assert all(k[-1] == "bfloat16" for k in new)
+    if cfg.family == "encdec":
+        assert new[(2 * cfg.n_heads, cfg.encoder_seq, cfg.head_dim, "bfloat16")] == \
+            cfg.encoder_layers

@@ -51,10 +51,11 @@ def port_modules():
 def test_every_port_module_imports_without_jax_or_repro():
     """In a fresh interpreter: import every module of repro_torch, serve,
     train, prefill a local_global config past its window and a MoE config,
-    run a store round trip on the CPU, and find no jax / repro in
-    sys.modules."""
+    prefill and decode the rwkv, hybrid and encdec families, run a store
+    round trip on the CPU, and find no jax / repro in sys.modules."""
     code = f"""
 import importlib, sys
+import torch
 for name in {port_modules()!r}:
     importlib.import_module(name)
 from repro_torch.configs import get_config
@@ -73,6 +74,15 @@ logits, cache = lg.prefill(lg.init(0), dict(tokens=[[1] * 80]))
 assert logits.shape == (1, 1, 512) and sorted(cache) == ["full", "local", "pos", "tail"]
 moe = get_model(get_config("granite_moe_3b").scaled_down(), "cpu")
 assert moe.prefill(moe.init(0), dict(tokens=[[1] * 24]))[0].shape == (1, 1, 512)
+import numpy as np
+for arch in ("rwkv6_1p6b", "zamba2_1p2b", "whisper_small"):
+    cfg = get_config(arch).scaled_down()
+    m = get_model(cfg, "cpu")
+    batch = dict(tokens=[[1] * 24])
+    if cfg.family == "encdec":
+        batch["frames"] = np.zeros((1, cfg.encoder_seq, cfg.d_model), np.float32)
+    logits, cache = m.decode_step(m.init(0), m.prefill(m.init(0), batch)[1], torch.ones((1, 1), dtype=torch.int32))
+    assert logits.shape == (1, 1, 512), arch
 s = make_store("erda-cluster", n_shards=2, replication=2, device="cpu",
                cfg=ServerConfig(device_size=4 << 20, table_capacity=1 << 9,
                                 n_heads=2, region_size=256 << 10,
@@ -177,6 +187,8 @@ def test_default_device_entry_points_raise_without_cuda():
              lambda: tree_from_numpy({"a": 1}),
              lambda: ops.crc32_bytes_batch([b"abc"]),
              lambda: get_model(olmo).init(0),
+             *[lambda arch=arch: get_model(get_config(arch).scaled_down())
+               for arch in ("rwkv6_1p6b", "zamba2_1p2b", "whisper_small")],
              lambda: params_from_numpy({"embed": {}, "final_norm": {},
                                         "layers": {}}, olmo),
              lambda: ServeEngine(cpu_model, cpu_params),

@@ -9,7 +9,6 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
@@ -124,9 +123,3 @@ def test_port_init_draws_reference_shapes_and_scales():
                 assert tuple(leaf.shape) == jshapes["layers"][group][name].shape[1:], \
                     (i, group, name)
     assert abs(float(params["embed"]["table"].float().std()) - 0.02) < 1e-3
-
-
-@pytest.mark.parametrize("arch", ["rwkv6_1p6b", "whisper_small", "zamba2_1p2b"])
-def test_unported_families_name_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model(get_config(arch).scaled_down(), CPU)

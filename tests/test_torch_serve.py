@@ -64,3 +64,31 @@ def test_page_store_segments_hold_a_whole_cache_leaf():
     assert shard.device_size >= 3 * shard.segment_size
     assert shard.device_size < 1 << 31
     assert len(store.store.cluster.groups) == 2
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_1p6b", "zamba2_1p2b", "whisper_small"])
+def test_launch_serve_on_cpu_for_each_family(arch):
+    """``launch.serve.serve`` at the smoke scale (the scaled-down config,
+    bf16): a preempted run resumes with the clean run's tokens."""
+    kw = dict(arch=arch, batch=1, prompt_len=8, tokens=4, snapshot_every=1, device="cpu")
+    clean = tserve.serve(**kw)
+    assert clean.shape == (1, 4)
+    np.testing.assert_array_equal(clean, tserve.serve(crash_at=2, **kw))
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("rwkv6_1p6b", {}), ("zamba2_1p2b", {}),
+    ("zamba2_1p2b", dict(n_layers=5, shared_attn_every=2)), ("whisper_small", {}),
+    ("olmo_1b", {}), ("gemma3_27b", dict(n_layers=8)), ("pixtral_12b", {})])
+def test_snapshot_pages_are_the_prefill_caches_leaves(arch, kw):
+    """The page store is sized from the family's own cache tree: the pages
+    ``snapshot_pages`` lists are the served prefill cache's leaves, by path
+    and bytes (a hybrid tail of None has none), and the tokens page."""
+    from repro_torch.tree import flatten_with_path
+    cfg = dataclasses.replace(get_config(arch).scaled_down(), **kw)
+    model = get_model(cfg, CPU)
+    batch = prompts(cfg, seq=8, batch=2)
+    with torch.inference_mode():
+        _l, cache = model.prefill(model.init(0), batch)
+    want = [(p, t.numel() * t.element_size()) for p, t in flatten_with_path(cache)]
+    assert tserve.snapshot_pages(cfg, 2, 8, 5) == want + [("__tokens__", 4 * 2 * 5)]

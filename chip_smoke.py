@@ -23,6 +23,21 @@ Phases, each printing one JSON line and raising on any mismatch:
               restore, a torn snapshot, failover — every restore bit-exact;
   checkpoint  the checkpoint manager on an olmo_1b-width bf16 state: save,
               restore, writer crash, torn manifest, server crash recovery;
+  ycsb        the paper's comparison of Erda, Redo Logging and Read After
+              Write on the DES, every Erda verify on the card's CRC kernel:
+              each scheme's simulated read latency over 16 B - 4 KiB values
+              (62 / 92 / 92 us, +- 4), server CPU and the NVM bytes of Table
+              1; YCSB A, B and C at 1 KiB records (10,000 keys, 20,000 ops
+              on a 4-shard erda-cluster, 16 contended threads; B also at
+              batch 16); the kill-a-shard, quorum chaos and elastic runs,
+              with no lost acknowledged write and no stale read; first
+              ``des_check``: the DES workloads on the card against the CPU,
+              reports equal;
+  serve_at_load  KV page serving at offered load (examples/serve_kv.py's
+              settings and 8 KiB pages) over page traces captured on the
+              card: the p99 opens past the knee, deadline admission keeps
+              goodput, shared-QP schedules are legal, every capture launched
+              the CRC kernel;
   serve       olmo_1b at its full config (random weights from a seed): 4
               requests x 256 prompt tokens, 16 greedy tokens with decode-cache
               snapshots in the page store, clean and preempted at token 10 —
@@ -75,17 +90,25 @@ Phases, each printing one JSON line and raising on any mismatch:
               whisper scaled down on the card against the CPU;
   each serve phase's parameters must number the family's exact count
   (``exact_param_count``);
-  train       olmo_1b at its full config trained by the port's trainer: 5
-              steps of 4 x 2048 tokens with an Erda checkpoint of the whole
-              train state (11.8 GB) after step 3, then a fresh trainer
+  train       olmo_1b at its full widths and 8 of its 16 layers
+              (``TRAIN_LAYERS``) trained by the port's trainer: 5 steps of
+              4 x 2048 tokens with an Erda checkpoint of the whole train
+              state (6.4 GB) after step 3, then a fresh trainer
               resumes from it (every shard CRC-verified on the card) and its
               losses must equal the uninterrupted run's; no flash launch;
               first one train step on the card against the CPU on small
               f32 configs, olmo_1b, local_global, pixtral, granite_moe and
               mixtral (loss with the MoE aux term, and every gradient);
-  kernels     one JSON line with an entry per ported kernel: launches on
+  trace_check (not run by default) the profiler's lost device events at
+              a session's start after the card idled, with and without the
+              burst of throwaway kernels every profiled session begins with;
+  kernels     a ``traces`` line (profiler sessions opened and each one
+              thrown away for a lost marker), then one JSON line with an
+              entry per ported kernel: launches on
               the main paths, agreement with the plain version, time beside
-              its bound, the plain version's and the library call's.
+              its bound, the plain version's and the library call's; the
+              CRC entry also at the DES phases' batches, with a verify
+              call's host round trip beside zlib.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device the
 script exits non-zero before printing any result.
 """
@@ -137,6 +160,58 @@ GEMMA3_12B_RESTORE_CRC = (5, 41943060)
 RWKV6_RESTORE_CRC = (4, 12582931)
 ZAMBA2_RESTORE_CRC = (8, 37748755)
 WHISPER_RESTORE_CRC = (6, 27648019)
+
+#: the DES phases.  The paper's scheme comparison (§5.1): one cold read and
+#: one update of each scheme at these value sizes, over ``SimTransport``,
+#: whose simulated mean read latency must lie within ``ANCHOR_TOL_US`` of
+#: the paper's (62.84 / 92.7 µs; the bounds of tests/test_fabric.py)
+ANCHOR_SIZES = (16, 64, 256, 1024, 4096)
+ANCHOR_READ_US = {"erda": 62.0, "redo": 92.0, "raw": 92.0}
+ANCHOR_TOL_US = 4.0
+#: ... and the NVM bytes of a create, an update and a delete at these sizes
+#: must equal Table 1's formulas (Erda's with its record framing)
+TABLE1_SIZES = (64, 1024)
+#: YCSB's core workloads A-C (workloada-workloadc: read share 0.5 / 0.95 /
+#: 1.0, Zipfian theta 0.99, 10 fields x 100 B records, here 1 KiB values):
+#: 10,000 keys (10 MB of live values) and 20,000 ops a run on a 4-shard
+#: erda-cluster, replayed by 16 contended threads; unbatched, and ycsb_b
+#: also at batch 16.  The key count is cut by the host DES's speed (5-8 s a
+#: run of the JAX package at this size)
+YCSB = dict(n_keys=10_000, n_ops=20_000, value_size=1024, threads=16, n_shards=4)
+YCSB_RUNS = (("ycsb_a", 0), ("ycsb_b", 0), ("ycsb_c", 0), ("ycsb_b", 16))
+#: a YCSB shard: its 2,500 keys and every version a run writes
+YCSB_SHARD = dict(device_size=64 << 20, table_capacity=1 << 13, n_heads=2,
+                  region_size=2 << 20, segment_size=64 << 10)
+#: the DES capture geometry (benchmarks/schemes_des.py's): traces depend on
+#: verb sizes, not on capacity
+CAPTURE_SHARD = dict(device_size=8 << 20, table_capacity=1 << 10, n_heads=1,
+                     region_size=1 << 20, segment_size=64 << 10)
+#: the fault workloads' shards (tests/test_replication.py's); the chaos
+#: run's have quarter-size regions, since every heal and promotion scans
+#: each head's regions on the host, 8 bytes a step
+FAULT_SHARD = dict(device_size=16 << 20, table_capacity=1 << 10, n_heads=2,
+                   region_size=1 << 20, segment_size=32 << 10)
+CHAOS_SHARD = dict(FAULT_SHARD, device_size=8 << 20, region_size=256 << 10)
+#: the kill-a-shard run of tests/test_replication.py
+FAILOVER = dict(workload="ycsb_a", n_ops=600, n_keys=80, value_size=64, seed=3)
+#: examples/serve_kv.py's KV page serving at load: 8 clients on 2 shards for
+#: 20 ms at a 0.9 read share, per-op and coalesced doorbells; and 16 clients
+#: on 4 shards for 6 ms with shared-QP coalescing under a 250 us SLO
+AT_LOAD = dict(n_clients=8, n_shards=2, horizon_s=0.02, read_frac=0.9)
+AT_LOAD_KOPS = (120.0, 900.0)
+AT_LOAD_SLO = dict(n_clients=16, n_shards=4, horizon_s=0.006, read_frac=0.9,
+                   seed=3, share_qp=True, b_max=64, slo_us=250.0,
+                   capture_batches=(1, 2, 4, 8, 16, 32, 64))
+AT_LOAD_SLO_KOPS = (400.0, 3840.0)
+#: one KV head's 16-token block of olmo_1b: 16 x head_dim 128 x K and V x
+#: bf16, the default block of paged KV caches
+PAGE_VSIZE = 8192
+
+#: the CRC rows the kernels line reports beside the main batch: a 1 KiB
+#: YCSB record and an 8 KiB KV page, in 32-bit words (the value and 19 B of
+#: record header and key, core/layout.py, in whole words)
+RECORD_OVERHEAD = 19
+DES_CRC_WIDTHS = tuple(-(-(v + RECORD_OVERHEAD) // 4) for v in (1024, PAGE_VSIZE))
 
 #: a serve phase's limit on peak device memory (the card's 80 GB)
 PEAK_BYTES_LIMIT = 80e9
@@ -259,28 +334,43 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-#: host seconds each profiler session traces before and after the work it
-#: measures.  Sessions that ran the work soon after they began, or ended
-#: soon after it, have lost the device events of the work's first or last
-#: milliseconds, most often after the card had idled (the train phase's
-#: checkpoint save and restore idle it for two minutes; PERF.md §7)
-TRACE_PAD_S = 2.0
+#: throwaway kernels each profiler session launches (and waits for) as it
+#: begins.  Once the card has idled for a few seconds, the traces of later
+#: sessions lack their first device events (about a dozen on the H100 with
+#: torch 2.11), however long the session waits before its work: these
+#: kernels absorb the loss (``trace_check`` measures it; PERF.md section 7)
+TRACE_BURST = 256
+#: host seconds each profiler session waits after the burst and after the
+#: work: the burst then lies well before the first marker on the card's clock
+TRACE_PAD_S = 0.25
 #: name and cycles of the spin kernel (``torch.cuda._sleep``) launched just
 #: before and just after the traced work
 MARK_KERNEL = "spin_kernel"
 MARK_CYCLES = 1000
+#: profiler sessions ``traced`` opens at most for one measurement: a trace
+#: that lost a marker is thrown away and the work traced again
+TRACE_ATTEMPTS = 3
+#: every session ``traced`` opened (``sessions``), and each one it threw
+#: away: the markers it kept and which of them (``"first"``, ``"last"``)
+TRACES = {"sessions": 0, "lost": []}
 
 
-def traced(fn):
-    """(``torch.profiler`` trace, ``fn()``) of one call of ``fn``, between
-    two spin kernels on the current stream, ``TRACE_PAD_S`` seconds after
-    the session begins and before it ends.  Raises unless the trace kept
-    both markers: the stream runs them in order around ``fn``'s kernels, so
-    a trace that lost the device events of the work's first (or last)
-    milliseconds lost a marker."""
+def device_events(prof) -> list:
+    import torch
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def trace_session(fn, burst: int = TRACE_BURST) -> tuple:
+    """(``torch.profiler`` trace, ``fn()``, markers the trace kept) of one
+    call of ``fn`` between two spin kernels on the current stream, after a
+    ``burst`` of throwaway kernels and ``TRACE_PAD_S`` seconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    sink = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(burst):
+            sink.add_(1)
         torch.cuda.synchronize()
         time.sleep(TRACE_PAD_S)
         torch.cuda._sleep(MARK_CYCLES)
@@ -288,20 +378,66 @@ def traced(fn):
         torch.cuda._sleep(MARK_CYCLES)
         torch.cuda.synchronize()
         time.sleep(TRACE_PAD_S)
-    marks = sum(e.count for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA and MARK_KERNEL in e.key)
-    check(marks == 2, f"the profiler's trace kept {marks} of its 2 marker kernels: "
-          f"it lost device events")
-    return prof, out
+    marks = sum(MARK_KERNEL in e.name for e in device_events(prof))
+    return prof, out, marks
 
 
-def traced_device_ms(prof) -> float:
-    """Summed device time (ms) of every kernel and copy in a ``traced``
-    trace, the marker kernels left out."""
-    import torch
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and MARK_KERNEL not in e.key) / 1e3
+def kept_marker(prof) -> str:
+    """Which marker a trace that kept one of them kept: ``"first"`` if a
+    device event (the work's) began after it, else ``"last"``."""
+    device = device_events(prof)
+    mark = next(e.time_range.start for e in device if MARK_KERNEL in e.name)
+    return "first" if any(e.time_range.start > mark for e in device) else "last"
+
+
+def traced(fn):
+    """(``trace_session`` trace, ``fn()``) of a session that kept both
+    markers: the stream runs them in order around ``fn``'s kernels, so a
+    trace that lost the device events of the work's first (or last)
+    milliseconds lost a marker.  Such a trace is logged in ``TRACES`` and
+    ``fn`` runs again in a new session; raises after ``TRACE_ATTEMPTS``
+    lost traces."""
+    for _ in range(TRACE_ATTEMPTS):
+        TRACES["sessions"] += 1
+        prof, out, marks = trace_session(fn)
+        if marks == 2:
+            return prof, out
+        TRACES["lost"].append({"session": TRACES["sessions"], "marks_kept": marks,
+                               "kept": kept_marker(prof) if marks == 1 else None})
+    check(False, f"{TRACE_ATTEMPTS} profiler traces in a row lost device events: "
+          f"{TRACES['lost'][-TRACE_ATTEMPTS:]}")
+
+
+def traced_work(prof) -> list:
+    """The device events (kernels, copies) of a ``traced`` trace from its
+    first marker on, the markers left out: the work's, not the burst's."""
+    device = device_events(prof)
+    first = min(e.time_range.start for e in device if MARK_KERNEL in e.name)
+    return [e for e in device if MARK_KERNEL not in e.name and e.time_range.start >= first]
+
+
+def traced_device_ms(prof, name: str = "") -> float:
+    """Summed device time (ms) of the work's kernels and copies in a
+    ``traced`` trace; only those whose name holds ``name``, where given."""
+    return sum(e.time_range.elapsed_us() for e in traced_work(prof) if name in e.name) / 1e3
+
+
+def run_trace_check(dev, *, rounds: int = 8, idle_s: float = 5.0) -> dict:
+    """The profiler's loss at a session's start, beside every path: each
+    round the card idles ``idle_s`` seconds, then one session without the
+    burst and one with ``TRACE_BURST`` (in turn first) trace the same 20 CRC
+    launches; counts the sessions of each kind that lost a marker."""
+    from repro_torch.kernels import ops
+    data = random_words((1, 261), seed=0, dev=dev)
+    work = lambda: [ops.crc32_batch(data) for _ in range(20)]
+    work()
+    kinds = [("without_burst", 0), ("with_burst", TRACE_BURST)]
+    lost = {kind: 0 for kind, _ in kinds}
+    for r in range(rounds):
+        time.sleep(idle_s)
+        for kind, burst in kinds[r % 2:] + kinds[:r % 2]:
+            lost[kind] += trace_session(work, burst)[2] != 2
+    return {"rounds": rounds, "idle_s": idle_s, "lost": lost}
 
 
 def profiled_ms(fn, reps: int) -> float:
@@ -676,7 +812,6 @@ def busy_share(fn, dev, top: int = 0) -> dict:
     copy in the trace over the host time (the profiler's own cost included).
     The share is None off the card.  ``top`` > 0 adds the device ms of the
     ``top`` costliest kernel names."""
-    import torch
     if dev.type != "cuda":
         return {"host_ms": wall_ms(fn, dev)[0], "device_ms": None, "busy_share": None}
     prof, (ms, _) = traced(lambda: wall_ms(fn, dev))
@@ -685,10 +820,9 @@ def busy_share(fn, dev, top: int = 0) -> dict:
     out = {"host_ms": ms, "device_ms": device_ms, "busy_share": device_ms / ms}
     if top:  # kernels grouped by the first 90 characters of their names
         by_name = {}
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA and MARK_KERNEL not in e.key:
-                name = e.key[:90]
-                by_name[name] = by_name.get(name, 0.0) + e.self_device_time_total / 1e3
+        for e in traced_work(prof):
+            name = e.name[:90]
+            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
         out["top_kernels_ms"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
     return out
 
@@ -1174,11 +1308,17 @@ def run_train_check(dev, *, arch: str = "olmo_1b", overrides=None, batch: int = 
             "max_abs_err": worst, "tol": GRAD_TOL}
 
 
+#: layers of olmo_1b the train phase runs (of its 16; widths unchanged): the
+#: whole script took more than 1000 s on the H100 at 16, so half the depth
+#: (PERF.md section 4)
+TRAIN_LAYERS = 8
+
+
 def run_train(dev, *, cfg=None, batch: int = 4, seq: int = 2048, steps: int = 5,
               ckpt_at: int = 3, lr: float = 3e-4, seed: int = 0) -> dict:
     """The port's trainer (``launch.train``: its step, schedule, batches,
     checkpoint format and sized manager) at ``cfg`` (default: olmo_1b at its
-    full config): ``steps`` steps uninterrupted with a checkpoint after
+    full widths and ``TRAIN_LAYERS`` layers): ``steps`` steps uninterrupted with a checkpoint after
     ``ckpt_at``, then a fresh trainer restores it and repeats the steps
     after it.  Fails unless every loss and grad norm is finite, the resumed
     losses equal the uninterrupted ones at ``RESUME_REL``, and on the card
@@ -1196,7 +1336,7 @@ def run_train(dev, *, cfg=None, batch: int = 4, seq: int = 2048, steps: int = 5,
     from repro_torch.train.step import make_train_state
     from repro_torch.tree import flatten_with_path
 
-    cfg = cfg or get_config("olmo_1b")
+    cfg = cfg or dataclasses.replace(get_config("olmo_1b"), n_layers=TRAIN_LAYERS)
     model = get_model(cfg, dev)
     step_fn = T.trainer_step(model, lr, steps)
     batches = [T.batch_at(cfg, seq, batch, s, dev) for s in range(steps)]
@@ -1284,6 +1424,368 @@ def run_train(dev, *, cfg=None, batch: int = 4, seq: int = 2048, steps: int = 5,
             "flash_launches": flash.launches}
 
 
+# ------------------------------------------------------- the DES phases
+def report_json(report) -> str:
+    """A report as sorted JSON: keys as strings, tuples as lists, bytes as
+    hex, anything else JSON lacks as its repr."""
+    def canon(x):
+        if isinstance(x, dict):
+            return {str(k): canon(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [canon(v) for v in x]
+        if isinstance(x, bytes):
+            return x.hex()
+        if x is None or isinstance(x, (bool, int, float, str)):
+            return x
+        return repr(x)
+    return json.dumps(canon(report), sort_keys=True)
+
+
+def sim_transports(p=None):
+    """A ``transport_factory`` of DES-timed ``SimTransport``s."""
+    from repro_torch.fabric import SimTransport
+    from repro_torch.netsim import SimParams
+    p = p or SimParams()
+    return lambda nvm: SimTransport(nvm, p)
+
+
+def erda_cluster(dev, shard: dict, *, sim: bool = True, **kwargs):
+    """An erda-cluster whose clients verify on ``dev``, over SimTransport
+    where ``sim``."""
+    from repro_torch.core import ServerConfig, make_store
+    if sim:
+        kwargs["transport_factory"] = sim_transports()
+    return make_store("erda-cluster", cfg=ServerConfig(**shard), device=dev, **kwargs)
+
+
+def crc_launched(fn):
+    """(``fn()``, the CRC launches it made, {shape: launches})."""
+    from repro_torch.kernels import ops
+    count = ops.COUNTS["crc32_batch"]
+    launches0, shapes0 = count.launches, dict(count.shapes)
+    out = fn()
+    shapes = {k: n - shapes0.get(k, 0) for k, n in count.shapes.items()
+              if n != shapes0.get(k, 0)}
+    return out, count.launches - launches0, shapes
+
+
+def uncounted(fn):
+    """``fn()`` with its launches left out of every kernel's count: a
+    measurement beside the main path, not part of it."""
+    from repro_torch.kernels import ops
+    saved = {name: (c.launches, c.rows, dict(c.shapes)) for name, c in ops.COUNTS.items()}
+    try:
+        return fn()
+    finally:
+        for name, c in ops.COUNTS.items():
+            c.launches, c.rows, c.shapes = saved[name]
+
+
+def crc_profile(fn, dev) -> dict:
+    """One ``traced`` call of ``fn`` on the card: the CRC kernels' device ms
+    (both passes) and launches, every kernel's and copy's device ms, the
+    host ms and the busy share.  Off the card, the host ms only."""
+    if dev.type != "cuda":
+        return {"host_ms": wall_ms(fn, dev)[0], "crc_kernel_ms": None}
+    prof, ((ms, _), launches, _shapes) = traced(lambda: crc_launched(lambda: wall_ms(fn, dev)))
+    kernel_ms = traced_device_ms(prof, "crc32")
+    device_ms = traced_device_ms(prof)
+    check(kernel_ms > 0, "the profiled run's trace holds no CRC kernel time")
+    return {"launches": launches, "crc_kernel_ms": kernel_ms,
+            "crc_kernel_ms_per_launch": kernel_ms / launches, "device_ms": device_ms,
+            "host_ms": ms, "busy_share": device_ms / ms}
+
+
+def run_des_check(dev, *, n_keys: int = 400, n_ops: int = 2000, value_size: int = 64,
+                  threads: int = 8, failover=FAILOVER, at_load_horizon_s: float = 0.004,
+                  shard=YCSB_SHARD, fault_shard=FAULT_SHARD) -> dict:
+    """The DES workloads with every Erda verify on ``dev`` against the same
+    calls on the CPU (the plain CRC): ``run_store_workload`` on a 4-shard
+    erda-cluster over SimTransport (ycsb_a at batch 16, ycsb_c unbatched,
+    both replayed by ``threads`` contended threads), the kill-a-shard run
+    and ``serve_kv_at_load`` at 120 and 900 KOp/s with its event trace.
+    The DES is deterministic and the CRC verdict exact, so each pair of
+    reports must be equal as sorted JSON, and each run on the card must
+    have launched the CRC kernel."""
+    import torch
+    from repro_torch.serving import engine, event_trace_bytes
+    from repro_torch.workloads import run_failover_workload, run_store_workload
+    cpu = torch.device("cpu")
+
+    def ycsb(workload, batch):
+        return lambda d: run_store_workload(
+            erda_cluster(d, shard, n_shards=4), workload, n_ops=n_ops, n_keys=n_keys,
+            value_size=value_size, batch_size=batch, contended_threads=threads)
+
+    def at_load(kops):
+        def run(d):
+            engine._page_traces.clear()  # each call captures on its own device
+            return engine.serve_kv_at_load(kops, **dict(AT_LOAD, horizon_s=at_load_horizon_s),
+                                           collect_trace=True, device=d)
+        return run
+    calls = {"ycsb_a_batch16": ycsb("ycsb_a", 16), "ycsb_c": ycsb("ycsb_c", 0),
+             "failover": lambda d: run_failover_workload(
+                 erda_cluster(d, fault_shard, sim=False, n_shards=4, replication=2),
+                 **failover)}
+    calls.update({f"at_load_{kops:g}": at_load(kops) for kops in AT_LOAD_KOPS})
+    out = {}
+    for name, call in calls.items():
+        t0 = time.perf_counter()
+        card, launches, shapes = crc_launched(lambda: call(dev))
+        t1 = time.perf_counter()
+        plain = call(cpu)
+        t2 = time.perf_counter()
+        check(report_json(card) == report_json(plain),
+              f"des_check {name}: the report on {dev} != the CPU's")
+        if "event_trace" in card:
+            check(event_trace_bytes(card) == event_trace_bytes(plain),
+                  f"des_check {name}: event traces differ")
+        check(dev.type == "cpu" or launches > 0, f"des_check {name}: no CRC launch on the card")
+        out[name] = {"equal": True, "report_bytes": len(report_json(card)),
+                     "crc_launches": launches,
+                     "crc_shapes": {str(k): v for k, v in shapes.items()},
+                     "card_s": t1 - t0, "cpu_s": t2 - t1}
+    return out
+
+
+def anchor_store(scheme: str, dev, *, sim: bool = True):
+    """``scheme``'s store at the DES capture geometry (the baselines at
+    their capture sizes); Erda verifies on ``dev``."""
+    from repro_torch.core import ServerConfig, make_store
+    kw = {"transport_factory": sim_transports()} if sim else {}
+    if scheme == "erda":
+        return make_store("erda", cfg=ServerConfig(**CAPTURE_SHARD), device=dev, **kw)
+    if scheme == "redo":
+        return make_store("redo", device_size=8 << 20, redo_capacity=1 << 20, **kw)
+    return make_store("raw", device_size=8 << 20, ring_capacity=1 << 20, **kw)
+
+
+def capture_op_steps(scheme: str, vsize: int, dev) -> dict:
+    """The DES steps of one cold read and one update of ``scheme`` at
+    ``vsize``, captured off the store code over SimTransport (the method of
+    benchmarks/schemes_des.py): write twice, drop Erda's location hint so
+    the read is the cold two-doorbell path, read, update."""
+    store = anchor_store(scheme, dev)
+    key, value = 11, b"\xa5" * vsize
+    store.write(key, value)
+    store.write(key, value)
+    if scheme == "erda":
+        store.client.loc_cache.clear()
+    store.transport.take_steps()
+    check(store.read(key) == value, f"{scheme} read at {vsize} B returned another value")
+    read = store.transport.take_steps()
+    store.write(key, value)
+    return {"read": read, "write": store.transport.take_steps()}
+
+
+def paper_anchors(dev, sizes=ANCHOR_SIZES, table1=TABLE1_SIZES) -> dict:
+    """The paper's comparison of Erda, Redo Logging and Read After Write:
+    mean simulated read latency over ``sizes`` within ``ANCHOR_TOL_US`` of
+    62 / 92 / 92 µs; Erda reads use no server CPU and its writes less than
+    Redo's; NVM bytes of a create, an update and a delete equal Table 1's
+    formulas (Erda's with the repo's record framing); prints the Erda /
+    Redo ratio of update bytes, measured and Table 1's (9+N)/(4+2N)."""
+    from repro_torch.core.layout import HEADER_SIZE, KEY_BYTES
+    from repro_torch.fabric import steps_cpu_s, steps_latency_s
+    steps = {s: {v: capture_op_steps(s, v, dev) for v in sizes} for s in ANCHOR_READ_US}
+    out = {"read_us": {}, "write_us": {}}
+    for scheme, by_size in steps.items():
+        out["read_us"][scheme] = {v: steps_latency_s(st["read"]) * 1e6 for v, st in by_size.items()}
+        out["write_us"][scheme] = {v: steps_latency_s(st["write"]) * 1e6
+                                   for v, st in by_size.items()}
+        mean = sum(out["read_us"][scheme].values()) / len(sizes)
+        out.setdefault("mean_read_us", {})[scheme] = mean
+        check(abs(mean - ANCHOR_READ_US[scheme]) <= ANCHOR_TOL_US,
+              f"{scheme} mean simulated read {mean:.2f} us, paper "
+              f"{ANCHOR_READ_US[scheme]} +- {ANCHOR_TOL_US}")
+    mid = 1024 if 1024 in sizes else sizes[-1]
+    cpu_us = {s: {op: steps_cpu_s(steps[s][mid][op]) * 1e6 for op in ("read", "write")}
+              for s in steps}
+    check(cpu_us["erda"]["read"] == 0.0 and cpu_us["redo"]["read"] > 0.0,
+          f"server CPU of a read: {cpu_us}")
+    check(0.0 < cpu_us["erda"]["write"] < cpu_us["redo"]["write"],
+          f"server CPU of a write: {cpu_us}")
+    out["server_cpu_us_at"] = {"value_size": mid, **cpu_us}
+    table = {}
+    for vsize in table1:
+        n = KEY_BYTES + vsize  # Table 1's N: the key-value pair
+        paper = {"erda": (KEY_BYTES + 10 + n, 9 + n, KEY_BYTES + 9),
+                 "redo": (KEY_BYTES + 12 + 2 * n, 4 + 2 * n, KEY_BYTES + 8),
+                 "raw": (KEY_BYTES + 12 + 2 * n, 4 + 2 * n, KEY_BYTES + 8)}
+        # Erda's records carry an 11 B header (the paper's 5 B) and its
+        # atomic word is one 8 B store (the paper counts 5 programmed bytes):
+        # tests/test_nvm_counts.py holds it to these framed formulas
+        want = dict(paper, erda=(10 + 8 + HEADER_SIZE + n, 8 + HEADER_SIZE + n,
+                                 8 + HEADER_SIZE + KEY_BYTES))
+        row = {}
+        for scheme in paper:
+            s = anchor_store(scheme, dev, sim=False)
+            got = []
+            for op in (lambda: s.write(1, b"c" * vsize), lambda: s.write(1, b"u" * vsize),
+                       lambda: s.delete(1)):
+                b0 = s.dev.stats.snapshot()
+                op()
+                got.append(s.dev.stats.delta(b0).bytes_written)
+            check(tuple(got) == want[scheme],
+                  f"{scheme} NVM bytes (create, update, delete) at {vsize} B: {got}, "
+                  f"want {want[scheme]}")
+            row[scheme] = {"measured": got, "table1": list(paper[scheme])}
+        row["erda_redo_update_ratio"] = row["erda"]["measured"][1] / row["redo"]["measured"][1]
+        row["table1_update_ratio"] = paper["erda"][1] / paper["redo"][1]
+        table[vsize] = row
+    out["table1_nvm_bytes"] = table
+    return out
+
+
+def ycsb_summary(r: dict, wall_s: float, launches: int, shapes: dict) -> dict:
+    """The printed part of a ``run_store_workload`` report."""
+    c = r["contended"]
+    lat = c["latency"]["all"]
+    return {"workload": r["workload"], "batch_size": r["batch_size"],
+            "reads": r["reads"], "writes": r["writes"], "threads": c["n_threads"],
+            "throughput_kops": c["throughput_kops"], "p50_us": lat["p50_us"],
+            "p99_us": lat["p99_us"], "spec_hits": r["spec_hits"],
+            "spec_misses": r["spec_misses"], "wall_s": wall_s, "crc_launches": launches,
+            "crc_shapes": {str(k): v for k, v in shapes.items()}}
+
+
+def run_ycsb(dev, *, anchors=(ANCHOR_SIZES, TABLE1_SIZES), ycsb=YCSB, runs=YCSB_RUNS,
+             shard=YCSB_SHARD, fault_shard=FAULT_SHARD, chaos_shard=CHAOS_SHARD,
+             failover=FAILOVER, chaos=None, elastic=None, profile_ops: int = 2000) -> dict:
+    """The paper's comparison on the card (every Erda verify on ``dev``):
+    the latency, server-CPU and Table 1 anchors; YCSB A, B and C on a
+    4-shard erda-cluster over SimTransport at ``ycsb`` (the workload checks
+    every read against its model and raises on a mismatch), replayed by the
+    contended threads; then the guarantees under faults on replicated
+    clusters — the kill-a-shard run, the quorum chaos run (replication 3)
+    and elastic scale-out and scale-in — each of which must report no lost
+    acknowledged write and no stale read.  Every simulated µs is the
+    paper's calibrated model, not the card's time.  One ycsb_c run of
+    ``profile_ops`` unbatched reads is profiled for the CRC kernel's device
+    time."""
+    from repro_torch.kernels import ops
+    from repro_torch.workloads.ycsb import (run_chaos_workload, run_elastic_workload,
+                                            run_failover_workload, run_store_workload)
+    crc = ops.COUNTS["crc32_batch"]
+    ops.reset_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    out = {"anchors": paper_anchors(dev, *anchors)}
+    out["anchors"]["wall_s"] = time.perf_counter() - t0
+    out["ycsb"] = []
+    for workload, batch in runs:
+        store = erda_cluster(dev, shard, n_shards=ycsb["n_shards"])
+        t0 = time.perf_counter()
+        r, launches, shapes = crc_launched(lambda: run_store_workload(
+            store, workload, n_ops=ycsb["n_ops"], n_keys=ycsb["n_keys"],
+            value_size=ycsb["value_size"], batch_size=batch,
+            contended_threads=ycsb["threads"]))
+        check(r["reads"] + r["writes"] == ycsb["n_ops"], f"{workload}: ops lost")
+        check(dev.type == "cpu" or launches > 0 or r["reads"] == 0,
+              f"{workload} batch {batch}: no CRC launch on the card")
+        out["ycsb"].append(ycsb_summary(r, time.perf_counter() - t0, launches, shapes))
+    faults = {
+        "failover": lambda: run_failover_workload(
+            erda_cluster(dev, fault_shard, sim=False, n_shards=4, replication=2),
+            **failover),
+        "chaos": lambda: run_chaos_workload(
+            erda_cluster(dev, chaos_shard, sim=False, n_shards=2, replication=3),
+            **(chaos or {})),
+        "elastic": lambda: run_elastic_workload(
+            erda_cluster(dev, fault_shard, sim=False, n_shards=4, replication=2),
+            **(elastic or {}))}
+    out["faults"] = {}
+    for name, run in faults.items():
+        t0 = time.perf_counter()
+        r, launches, _shapes = crc_launched(run)
+        # the workloads raise on a lost or stale read; the chaos and elastic
+        # reports also count them
+        lost, stale = r.get("lost_acked_writes", 0), r.get("stale_reads", 0)
+        check(lost == 0 and stale == 0, f"{name}: {lost} lost acked writes, {stale} stale reads")
+        check(dev.type == "cpu" or launches > 0, f"{name}: no CRC launch on the card")
+        out["faults"][name] = {
+            k: r[k] for k in ("n_ops", "reads", "writes", "failovers", "denied_ops",
+                              "faults", "kills", "partitions", "heals", "shards_path",
+                              "max_ratio", "straggler_rejections", "epoch_bumps",
+                              "degraded_reads", "stale_rejected") if k in r}
+        out["faults"][name].update(lost_acked_writes=lost, stale_reads=stale,
+                                   wall_s=time.perf_counter() - t0, crc_launches=launches)
+    out["crc32_batch"] = {"launches": crc.launches,
+                          "shapes": {str(k): v for k, v in crc.shapes.items()}}
+    # beside the main path: one profiled run of unbatched reads
+    profiled = erda_cluster(dev, shard, n_shards=ycsb["n_shards"])
+    out["profiled"] = dict(uncounted(lambda: crc_profile(lambda: run_store_workload(
+        profiled, "ycsb_c", n_ops=profile_ops, n_keys=max(profile_ops // 2, 1),
+        value_size=ycsb["value_size"]), dev)), run=f"ycsb_c {profile_ops} ops unbatched")
+    return out
+
+
+def run_serve_at_load(dev, *, at_load=AT_LOAD, kops=AT_LOAD_KOPS, slo=AT_LOAD_SLO,
+                      slo_kops=AT_LOAD_SLO_KOPS, page_vsize=PAGE_VSIZE) -> dict:
+    """KV page serving at load (examples/serve_kv.py's settings), the page
+    traces captured off real ``ErdaCluster`` ops whose every verify runs on
+    ``dev``: 120 and 900 KOp/s with per-op and coalesced doorbells; 400
+    and 3840 KOp/s with shared-QP coalescing under a 250 µs SLO, queue-bound
+    and deadline admission; and ``page_vsize`` pages (one olmo_1b KV head's
+    16-token bf16 block) at 120 and 900 KOp/s, coalesced.  Fails unless the
+    p99 at 900 KOp/s is above the p99 at 120, past the knee deadline
+    admission's goodput is at least the queue's, every shared-QP schedule
+    is a legal interleaving of the client streams, and every capture on
+    the card launched the CRC kernel.  Latencies are simulated µs."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (capture_page_fetch_traces, check_schedule_legality,
+                                     engine)
+    crc = ops.COUNTS["crc32_batch"]
+    engine._page_traces.clear()  # the phase captures its own traces on dev
+    ops.reset_counts()  # the main path starts here
+    runs = {}
+
+    def serve(label, offered, **kw):
+        captures = len(engine._page_traces)
+        t0 = time.perf_counter()
+        r, launches, shapes = crc_launched(
+            lambda: engine.serve_kv_at_load(offered, device=dev, **kw))
+        captured = len(engine._page_traces) > captures
+        check(not captured or dev.type == "cpu" or launches > 0,
+              f"{label}: the capture launched no CRC kernel")
+        lat = r["latency"]["all"]
+        row = {"offered_kops": offered, "throughput_kops": r["throughput_kops"],
+               "goodput_kops": r["slo"]["goodput_kops"] if "slo" in r else None,
+               "p50_us": lat["p50_us"], "p99_us": lat["p99_us"], "dropped": r["dropped"],
+               "shed": r["shed"], "mean_batch": r["mean_batch"],
+               "nic_utilization": [p["nic_utilization"] for p in r["ports"]],
+               "captured": captured, "crc_launches": launches,
+               "crc_shapes": {str(k): v for k, v in shapes.items()},
+               "wall_s": time.perf_counter() - t0}
+        if r.get("schedule_detail"):
+            legal = check_schedule_legality(r["schedule_detail"], kw["n_clients"])
+            check(legal["violations"] == 0, f"{label}: {legal['violations']} illegal dispatches")
+            row["schedule_violations"] = 0
+        runs[label] = row
+        return r
+
+    for offered in kops:
+        for coalesce in (False, True):
+            serve(f"{offered:g}_{'coalesced' if coalesce else 'per_op'}", offered,
+                  coalesce=coalesce, **at_load)
+    lo, hi = (runs[f"{k:g}_coalesced"]["p99_us"] for k in kops)
+    check(hi > lo, f"p99 at {kops[1]:g} KOp/s ({hi} us) not above {kops[0]:g}'s ({lo} us)")
+    for offered in slo_kops:
+        for admission in ("queue", "slo"):
+            serve(f"{offered:g}_{admission}", offered, admission=admission,
+                  collect_schedule=True, **slo)
+    q, s = (runs[f"{slo_kops[1]:g}_{a}"]["goodput_kops"] for a in ("queue", "slo"))
+    check(s >= q, f"past the knee slo goodput {s} < queue goodput {q}")
+    for offered in kops:
+        serve(f"{offered:g}_page{page_vsize}", offered, vsize=page_vsize, **at_load)
+    out = {"runs": runs, "crc32_batch": {
+        "launches": crc.launches, "shapes": {str(k): v for k, v in crc.shapes.items()}}}
+    # beside the main path: one profiled capture of the pages
+    out["profiled"] = dict(uncounted(lambda: crc_profile(lambda: capture_page_fetch_traces(
+        n_shards=at_load["n_shards"], vsize=page_vsize, device=dev), dev)),
+        run=f"capture_page_fetch_traces vsize {page_vsize}")
+    return out
+
+
 def flash_entry(dev, launches: int, shapes: dict, also=()) -> dict:
     """The flash kernel at the main path's most frequent launch (a serve
     prefill's shape and dtype), beside its plain version, SDPA and its
@@ -1313,14 +1815,61 @@ def flash_entry(dev, launches: int, shapes: dict, also=()) -> dict:
             "library_ms": case["library_ms"], "call_ms": case["call_ms"]}
 
 
-def crc_entry(dev, launches: int, shapes: dict) -> dict:
+def verify_round_trip(n: int, w: int, dev, reps: int = 200) -> dict:
+    """Host ms of one ``layout.verify_records`` call on ``n`` records whose
+    rows are ``w`` words (values of 4w - 20 B): what a read pays for its
+    verify on the card — the copy of the rows to it, the launch, the copy
+    of the CRCs back and the sync — beside host zlib on the same records.
+    Its launches are left out of the counts."""
+    from repro_torch.core import layout
+    bufs = [layout.pack_record(k + 1, bytes([k % 251]) * (4 * w - 20)) for k in range(n)]
+    reps = reps if dev.type == "cuda" else 1
+
+    def verify():
+        check(bool(layout.verify_records(bufs, dev).all()), f"verify_records at {(n, w)}")
+    uncounted(verify)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        uncounted(verify)
+    verify_ms = (time.perf_counter() - t0) * 1e3 / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        [zlib.crc32(b) for b in bufs]
+    return {"verify_call_ms": verify_ms,
+            "zlib_ms": (time.perf_counter() - t0) * 1e3 / reps}
+
+
+def des_crc_keys(shapes: dict) -> list:
+    """The DES phases' CRC batches the kernels line reports: at each of
+    ``DES_CRC_WIDTHS``, the most launched batch (a single read's) and the
+    one with the most rows (a batched read's or a page capture's)."""
+    keys = []
+    for w in DES_CRC_WIDTHS:
+        at = {k: n for k, n in shapes.items() if k[1] == w}
+        if at:
+            keys += [k for k in dict.fromkeys((max(at, key=at.get), max(at)))
+                     if k not in keys]
+    return keys
+
+
+def crc_entry(dev, launches: int, shapes: dict, also=(), also_shapes=None) -> dict:
     """The CRC kernel at the main path's batch with the most rows (a KV
-    restore's per-shard batch), beside its plain version and its bound.
-    Batches of rows wider than ``PLAIN_CRC_WORDS`` are left out by the
-    caller: the plain version's per-byte loop would take minutes on them."""
+    restore's per-shard batch), beside its plain version and its bound;
+    ``also`` lists other batches of the main paths (the DES phases') reported
+    the same way, with their launches in ``also_shapes`` and a verify call's
+    host round trip beside zlib.  Batches of rows wider than
+    ``PLAIN_CRC_WORDS`` are left out by the caller: the plain version's
+    per-byte loop would take minutes on them."""
     n, w = max(shapes, key=lambda s: (s[0], s[1]))
     case = crc_case(n, w, seed=7, dev=dev)
-    return {"name": "crc32_batch", "route": "cuda",
+    more = []
+    for i, (rows, width) in enumerate(also):
+        c = crc_case(rows, width, seed=8 + i, dev=dev)
+        more.append({"shape": [rows, width], "launches": (also_shapes or {}).get((rows, width), 0),
+                     "max_abs_err": 0, "ms": c["ms"], "plain_ms": c["plain_ms"],
+                     "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None,
+                     **verify_round_trip(rows, width, dev)})
+    return {"name": "crc32_batch", "route": "cuda", "also": more,
             "source": "src/repro_torch/kernels/csrc/crc32.cu",
             "replaces": "src/repro/kernels/crc32.py:61",
             "launches": launches, "matches_plain": True, "max_abs_err": 0,
@@ -1332,7 +1881,7 @@ def crc_entry(dev, launches: int, shapes: dict) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="device,crc32,flash_attention,kv_pages,"
-                    "checkpoint,serve,serve_gemma3,serve_granite_moe,"
+                    "checkpoint,ycsb,serve_at_load,serve,serve_gemma3,serve_granite_moe,"
                     "serve_gemma3_12b,serve_rwkv6,serve_zamba2,serve_whisper,"
                     "train,kernels")
     args = ap.parse_args(argv)
@@ -1355,11 +1904,15 @@ def main(argv=None) -> int:
     if "flash_attention" in phases:
         for case in run_flash_attention(dev):
             emit("flash_attention", **case)
+    if "trace_check" in phases:  # not a default phase
+        emit("trace_check", **uncounted(lambda: run_trace_check(dev)))
     # each main-path phase resets the counts where its path starts; these sum
     # what every kernel launched on the main paths, and at which shapes
     launches = {name: 0 for name in ops.COUNTS}
     shapes = {name: {} for name in ops.COUNTS}
+    des_shapes = {}  # the CRC batches of the DES phases' main paths
     runs = [("kv_pages", run_kv_pages), ("checkpoint", run_checkpoint),
+            ("ycsb", run_ycsb), ("serve_at_load", run_serve_at_load),
             ("serve", run_serve), ("serve_gemma3", run_serve_gemma3),
             ("serve_granite_moe", run_serve_granite_moe),
             ("serve_gemma3_12b", run_serve_gemma3_12b), ("serve_rwkv6", run_serve_rwkv6),
@@ -1368,7 +1921,8 @@ def main(argv=None) -> int:
     # the card against the CPU on small f32 configs, before the phase
     model_check = lambda label: ("model_check", label, run_model_check, MODEL_CHECKS[label])
     train_check = lambda label: ("train_check", label, run_train_check, TRAIN_CHECKS[label])
-    checks = {"serve": [model_check("olmo_1b")],
+    checks = {"ycsb": [("des_check", "card_vs_cpu", run_des_check, {})],
+              "serve": [model_check("olmo_1b")],
               "serve_gemma3": [model_check("local_global"), model_check("pixtral")],
               "serve_granite_moe": [model_check("granite_moe"), model_check("mixtral")],
               "serve_gemma3_12b": [model_check("gemma3_12b")],
@@ -1390,12 +1944,17 @@ def main(argv=None) -> int:
             launches[kname] += count.launches
             for k, v in count.shapes.items():
                 shapes[kname][k] = shapes[kname].get(k, 0) + v
+        if name in ("ycsb", "serve_at_load"):
+            for k, v in ops.COUNTS["crc32_batch"].shapes.items():
+                des_shapes[k] = des_shapes.get(k, 0) + v
+    emit("traces", **TRACES)
     if "kernels" in phases:
         entries = []
         crc_shapes = {k: v for k, v in shapes["crc32_batch"].items()
                       if k[1] <= PLAIN_CRC_WORDS}
         if crc_shapes:
-            entries.append(crc_entry(dev, launches["crc32_batch"], crc_shapes))
+            entries.append(crc_entry(dev, launches["crc32_batch"], crc_shapes,
+                                     also=des_crc_keys(des_shapes), also_shapes=des_shapes))
         if shapes["flash_attention"]:
             fs = shapes["flash_attention"]
             also = [k for table in (GEMMA3_12B_PREFILL_FLASH, ZAMBA2_PREFILL_FLASH,

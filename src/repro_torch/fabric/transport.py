@@ -448,7 +448,6 @@ def make_transport(kind: str, dev: NVMDevice, **kwargs):
     if kind == "inproc":
         return InProcessTransport(dev, **kwargs)
     if kind == "sim":
-        raise NotImplementedError(
-            "the DES SimTransport (fabric/sim.py, netsim/) is not ported yet: "
-            "it is queued after the model-stack slice of the port")
+        from repro_torch.fabric.sim import SimTransport
+        return SimTransport(dev, **kwargs)
     raise ValueError(f"unknown transport kind {kind!r}")

@@ -1,12 +1,17 @@
 """Batched serving engine: prefill a batch of requests, decode greedily, and
 snapshot decode state into the Erda page store so that a preempted replica
-resumes bit-identically — the port of ``repro/serving/engine.py``'s
-``ServeEngine``.  Serving the page store at load (``serve_kv_at_load``)
-comes with the port of the DES.
+resumes bit-identically — the port of ``repro/serving/engine.py``.
+
+Also the front door for serving the page store AT LOAD: ``serve_kv_at_load``
+drives KV page fetches through the open-loop Poisson driver
+(``repro_torch.serving.load``) over the contention-aware DES — offered load
+in, throughput + tail latency out.  The page-trace capture runs real
+``ErdaCluster`` ops whose clients CRC-verify every fetched page on
+``device``; the DES prices the paper's client, not the device.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,3 +63,67 @@ class ServeEngine:
         if restored is None:
             raise RuntimeError("no snapshot to recover from")
         return restored
+
+
+# --------------------------------------------------------- serving at load
+#: captured page-fetch trace tables, keyed by geometry and the capture's
+#: device (capture is ~100 ms; a load sweep calls serve_kv_at_load once per
+#: point)
+_page_traces: Dict[Tuple, dict] = {}
+
+
+def serve_kv_at_load(offered_kops: float, *, n_clients: int = 4,
+                     n_shards: int = 2, vsize: int = 1024,
+                     read_frac: float = 0.9, coalesce: bool = True,
+                     share_qp: bool = False, slo_us: Optional[float] = None,
+                     admission: str = "queue", horizon_s: float = 0.02,
+                     seed: int = 0, p=None, replication: int = 1,
+                     capture_batches: Optional[Tuple[int, ...]] = None,
+                     device="cuda", **cfg_kwargs) -> dict:
+    """Serve Erda-backed KV page fetches at a fixed OFFERED load (KOp/s).
+
+    Captures doorbell traces of real ``ErdaCluster`` ``multi_read`` /
+    ``multi_write`` page ops (once per geometry and device), then replays
+    Poisson arrivals through the contended fabric with bounded admission
+    queues and (optionally) adaptive doorbell coalescing.  Returns the
+    ``run_open_loop`` report: throughput, p50/p95/p99 per op type, drops,
+    per-QP HoL stats, port utilization, persistence lag.
+
+    ``share_qp=True`` merges doorbells ACROSS the client streams sharing
+    each (host, shard) QP instead of per client; ``slo_us`` gives every
+    request a deadline and turns on goodput accounting, and
+    ``admission="slo"`` sheds by earliest infeasible deadline instead of
+    queue position (see ``repro_torch.serving.load``).
+
+    ``replication>1`` serves off a quorum-mirrored page store: every write's
+    mirror legs ride extra lanes pinned to the host ports that hold the
+    backup replicas, so replicated write amplification shows up in NIC
+    utilization and write tail latency — and under ``share_qp=True`` the
+    mirror lanes coalesce on the same shared QPs as the primary traffic.
+
+    ``device`` is where the capture's clients CRC-verify the pages they
+    fetch; a capture made on one device never serves a call for another.
+    """
+    import dataclasses
+    from repro_torch.netsim.pricing import SimParams
+    from repro_torch.serving.load import (OpenLoopConfig,
+                                          capture_page_fetch_traces,
+                                          run_open_loop)
+    p = p or SimParams()
+    device = resolve_device(device)
+    key = (n_shards, vsize, replication, capture_batches, str(device)) \
+        + dataclasses.astuple(p)
+    traces = _page_traces.get(key)
+    if traces is None:
+        kwargs = {} if capture_batches is None \
+            else {"batches": capture_batches}
+        traces = _page_traces[key] = capture_page_fetch_traces(
+            n_shards=n_shards, vsize=vsize, p=p, replication=replication,
+            device=device, **kwargs)
+    cfg = OpenLoopConfig(offered_kops=offered_kops, n_clients=n_clients,
+                         horizon_s=horizon_s, coalesce=coalesce,
+                         share_qp=share_qp,
+                         slo_s=None if slo_us is None else slo_us * 1e-6,
+                         admission=admission,
+                         read_frac=read_frac, seed=seed, **cfg_kwargs)
+    return run_open_loop(traces, cfg, p)

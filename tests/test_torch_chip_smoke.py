@@ -551,3 +551,100 @@ def test_kernels_line_times_a_non_causal_key_without_the_mask(monkeypatch):
     assert flash["shape"] == [2, 30, 32] and flash["causal"] is False
     (other,) = flash["also"]
     assert other["causal"] is True and other["launches"] == 2
+
+
+# ------------------------------------------------------- the DES phases
+#: the DES phases at a tiny size: few keys and ops, short horizons, a
+#: shortened chaos and elastic run
+TINY_YCSB = dict(n_keys=100, n_ops=200, value_size=64, threads=4, n_shards=4)
+TINY_FAILOVER = dict(chip_smoke.FAILOVER, n_ops=100, n_keys=20)
+
+
+def test_des_check_on_cpu():
+    """The DES workloads against themselves on the CPU: every pair of reports
+    equal as sorted JSON, and no launch off the card."""
+    out = chip_smoke.run_des_check(torch.device("cpu"), n_keys=40, n_ops=100,
+                                   failover=TINY_FAILOVER, at_load_horizon_s=0.001)
+    assert sorted(out) == ["at_load_120", "at_load_900", "failover", "ycsb_a_batch16",
+                           "ycsb_c"]
+    assert all(r["equal"] and r["crc_launches"] == 0 for r in out.values())
+
+
+def test_ycsb_phase_on_cpu():
+    """The paper's anchors at their full size (simulated µs, Table 1 bytes),
+    YCSB A, B, C and B at batch 16 and the three fault workloads at a tiny
+    size: every read checked, no lost acknowledged write, no stale read."""
+    out = chip_smoke.run_ycsb(torch.device("cpu"), ycsb=TINY_YCSB, failover=TINY_FAILOVER,
+                              chaos=dict(n_ops=60, n_keys=12, n_faults=2),
+                              elastic=dict(n_ops=120, n_keys=30), profile_ops=20)
+    a = out["anchors"]
+    assert a["mean_read_us"]["erda"] == pytest.approx(62.0, abs=4.0)
+    assert a["mean_read_us"]["redo"] == pytest.approx(92.0, abs=4.0)
+    assert a["server_cpu_us_at"]["erda"]["read"] == 0.0
+    t1 = a["table1_nvm_bytes"][1024]
+    assert t1["redo"]["measured"] == t1["redo"]["table1"] == [2084, 2068, 16]
+    assert t1["erda"]["measured"] == [1061, 1051, 27]  # the 11 B header's framing
+    assert t1["erda_redo_update_ratio"] == pytest.approx(0.508, abs=1e-3)
+    assert [(r["workload"], r["batch_size"]) for r in out["ycsb"]] == list(chip_smoke.YCSB_RUNS)
+    assert all(r["reads"] + r["writes"] == 200 for r in out["ycsb"])
+    assert sorted(out["faults"]) == ["chaos", "elastic", "failover"]
+    assert all(f["lost_acked_writes"] == 0 == f["stale_reads"] for f in out["faults"].values())
+    assert out["faults"]["failover"]["failovers"] == 1
+    assert out["crc32_batch"]["launches"] == 0 and out["profiled"]["crc_kernel_ms"] is None
+
+
+def test_serve_at_load_phase_on_cpu():
+    """Every run of the phase at short horizons: the p99 opens past the
+    knee, deadline admission keeps goodput, the shared-QP schedules are
+    legal, and each geometry is captured once."""
+    out = chip_smoke.run_serve_at_load(
+        torch.device("cpu"), at_load=dict(chip_smoke.AT_LOAD, horizon_s=0.004),
+        slo=dict(chip_smoke.AT_LOAD_SLO, horizon_s=0.002, capture_batches=(1, 2, 4, 8, 16)),
+        page_vsize=512)
+    runs = out["runs"]
+    assert list(runs) == ["120_per_op", "120_coalesced", "900_per_op", "900_coalesced",
+                          "400_queue", "400_slo", "3840_queue", "3840_slo",
+                          "120_page512", "900_page512"]
+    assert [r["captured"] for r in runs.values()].count(True) == 3
+    assert runs["900_coalesced"]["p99_us"] > runs["120_coalesced"]["p99_us"]
+    assert runs["3840_slo"]["goodput_kops"] >= runs["3840_queue"]["goodput_kops"]
+    assert all(runs[k]["schedule_violations"] == 0 for k in runs if "queue" in k or "slo" in k)
+    assert len(runs["900_coalesced"]["nic_utilization"]) == 2
+
+
+def test_report_json_is_canonical():
+    a = {2: (1, b"\x01"), "x": [0.5, None], 1: {"k": True}}
+    b = {1: {"k": True}, "x": [0.5, None], 2: [1, b"\x01"]}
+    assert chip_smoke.report_json(a) == chip_smoke.report_json(b)
+    assert chip_smoke.report_json(a) != chip_smoke.report_json({**a, "x": [0.25, None]})
+
+
+def test_des_crc_keys_pick_single_and_batched_reads():
+    """At a 1 KiB record's and an 8 KiB page's width, the most launched
+    batch and the one with the most rows; other widths are left out."""
+    assert chip_smoke.DES_CRC_WIDTHS == (261, 2053)
+    shapes = {(1, 261): 900, (16, 261): 20, (3, 261): 40, (1, 21): 5000,
+              (9, 2053): 4, (12, 2053): 1}
+    assert chip_smoke.des_crc_keys(shapes) == [(1, 261), (16, 261), (9, 2053), (12, 2053)]
+    assert chip_smoke.des_crc_keys({(2, 261): 3}) == [(2, 261)]
+
+
+def test_kernels_line_reports_the_des_crc_batches():
+    cpu = torch.device("cpu")
+    crc = chip_smoke.crc_entry(cpu, 9, {(6, 2): 2, (2, 21): 7}, also=[(2, 21)],
+                               also_shapes={(2, 21): 7})
+    assert crc["shape"] == [6, 2] and crc["launches"] == 9
+    (des,) = crc["also"]
+    assert des["shape"] == [2, 21] and des["launches"] == 7 and des["max_abs_err"] == 0
+    assert {"ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "verify_call_ms",
+            "zlib_ms"} <= set(des)
+    assert des["verify_call_ms"] > 0 and des["ms"] is None
+
+
+def test_des_phases_run_before_serving():
+    """The DES phases follow the checkpoint phase and precede serve."""
+    import inspect
+    src = inspect.getsource(chip_smoke.main)
+    order = [src.index(f'"{name}"') for name in ("checkpoint", "ycsb", "serve_at_load",
+                                                 "serve_gemma3")]
+    assert order == sorted(order)

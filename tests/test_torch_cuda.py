@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain versions, and the model's
-prefill through the flash kernel against the CPU's plain path, on the card.
+"""The port's CUDA kernels against their plain versions, the model's
+prefill through the flash kernel against the CPU's plain path, and the DES
+workloads' reports with every Erda verify on the card against the CPU's.
 JAX-free, so it runs on a machine that has only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -359,3 +360,42 @@ def test_family_bf16_prefill_takes_the_tensor_core_route(cuda_device, arch, kw, 
     if cfg.family == "encdec":
         assert new[(2 * cfg.n_heads, cfg.encoder_seq, cfg.head_dim, "bfloat16")] == \
             cfg.encoder_layers
+
+
+# ------------------------------------------------- the DES on the card
+def at_load_report(device):
+    from repro_torch.serving import engine
+    engine._page_traces.clear()  # each call captures on its own device
+    return engine.serve_kv_at_load(900, n_clients=8, n_shards=2, horizon_s=0.002,
+                                   share_qp=True, slo_us=250, admission="slo",
+                                   collect_trace=True, device=device)
+
+
+def ycsb_report(device, workload, batch):
+    from repro_torch.fabric import SimTransport
+    from repro_torch.workloads import run_store_workload
+    store = make_store("erda-cluster", n_shards=4, device=device,
+                       cfg=ServerConfig(device_size=4 << 20, table_capacity=1 << 10,
+                                        n_heads=1, region_size=1 << 20,
+                                        segment_size=64 << 10),
+                       transport_factory=lambda nvm: SimTransport(nvm))
+    return run_store_workload(store, workload, n_ops=300, n_keys=60, value_size=1024,
+                              batch_size=batch, contended_threads=4)
+
+
+def test_serve_kv_at_load_on_card_equals_cpu(cuda_device):
+    from repro_torch.serving import event_trace_bytes
+    before = ops.COUNTS["crc32_batch"].launches
+    card = at_load_report(cuda_device)
+    assert ops.COUNTS["crc32_batch"].launches > before
+    cpu = at_load_report("cpu")
+    assert repr(card) == repr(cpu)
+    assert event_trace_bytes(card) == event_trace_bytes(cpu)
+
+
+@pytest.mark.parametrize("workload,batch", [("ycsb_c", 0), ("ycsb_b", 16)])
+def test_store_workload_on_card_equals_cpu(cuda_device, workload, batch):
+    before = ops.COUNTS["crc32_batch"].launches
+    card = ycsb_report(cuda_device, workload, batch)
+    assert ops.COUNTS["crc32_batch"].launches > before
+    assert repr(card) == repr(ycsb_report("cpu", workload, batch))

@@ -24,8 +24,9 @@ VERBATIM = ["nvmsim/device.py", "core/hashtable.py", "core/log.py",
             "core/replication.py", "core/resharding.py",
             "core/baselines/redo_logging.py",
             "core/baselines/read_after_write.py",
+            "fabric/transport.py", "fabric/sim.py",
             *sorted(str(p.relative_to(SRC / "repro"))
-                    for d in ("configs", "data")
+                    for d in ("configs", "data", "netsim", "workloads")
                     for p in (SRC / "repro" / d).glob("*.py"))]
 #: copies the port changes, with the functions it changes; every other
 #: top-level function and method must stay the reference's
@@ -36,7 +37,8 @@ CHANGED = {
                     "make_store"},
     "core/cluster.py": {"ErdaCluster.__init__", "ErdaCluster._connect"},
     "core/layout.py": {"verify_records", "view_record"},
-    "fabric/transport.py": {"make_transport"},
+    "serving/load.py": {"capture_page_fetch_traces",
+                        "capture_migration_traces"},
 }
 
 
@@ -52,7 +54,8 @@ def test_every_port_module_imports_without_jax_or_repro():
     """In a fresh interpreter: import every module of repro_torch, serve,
     train, prefill a local_global config past its window and a MoE config,
     prefill and decode the rwkv, hybrid and encdec families, run a store
-    round trip on the CPU, and find no jax / repro in sys.modules."""
+    round trip and serve KV pages at load on the CPU, and find no jax /
+    repro in sys.modules."""
     code = f"""
 import importlib, sys
 import torch
@@ -89,6 +92,8 @@ s = make_store("erda-cluster", n_shards=2, replication=2, device="cpu",
                                 segment_size=32 << 10))
 s.multi_write([(k, bytes([k]) * k) for k in range(1, 20)])
 assert s.multi_read(list(range(1, 20))) == [bytes([k]) * k for k in range(1, 20)]
+from repro_torch.serving import serve_kv_at_load
+assert serve_kv_at_load(100, horizon_s=0.001, device="cpu")["completed"] > 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(bad)
@@ -151,13 +156,6 @@ def test_changed_copies_drift_only_where_ported(rel):
     assert set(port) - set(ref) <= allowed
 
 
-def test_sim_transport_is_not_ported_yet():
-    from repro_torch.fabric import make_transport
-    from repro_torch.nvmsim.device import NVMDevice
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_transport("sim", NVMDevice(1 << 16))
-
-
 def test_default_device_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -171,7 +169,9 @@ def test_default_device_entry_points_raise_without_cuda():
     from repro_torch.launch.train import checkpoint_manager_for, train
     from repro_torch.models import get_model
     from repro_torch.models.convert import params_from_numpy, train_state_from_numpy
-    from repro_torch.serving import ErdaKVPageStore, ServeEngine
+    from repro_torch.serving import (ErdaKVPageStore, ServeEngine,
+                                     capture_page_fetch_traces,
+                                     serve_kv_at_load)
     from repro_torch.train.step import make_train_state
     cfg = ServerConfig(device_size=2 << 20, table_capacity=1 << 8, n_heads=1,
                        region_size=256 << 10, segment_size=32 << 10)
@@ -196,7 +196,9 @@ def test_default_device_entry_points_raise_without_cuda():
              lambda: train(steps=1, batch=2, seq=16),
              lambda: make_train_state(get_model(olmo)),
              lambda: train_state_from_numpy({"params": {}}, olmo),
-             lambda: checkpoint_manager_for(1 << 20)]
+             lambda: checkpoint_manager_for(1 << 20),
+             lambda: serve_kv_at_load(100, horizon_s=0.001),
+             lambda: capture_page_fetch_traces(batches=(1,))]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

@@ -99,6 +99,16 @@ Phases, each printing one JSON line and raising on any mismatch:
               first one train step on the card against the CPU on small
               f32 configs, olmo_1b, local_global, pixtral, granite_moe and
               mixtral (loss with the MoE aux term, and every gradient);
+              last the checkpoint restored again by
+              ``launch.elastic.reshard_restore`` onto a 1 x 1 DeviceMesh of
+              the card (NCCL, world 1): every leaf bit-equal to the plain
+              restore's, the CRC kernel launched, and the loss on the
+              DTensor parameters equal to the plain one (rel 1e-4);
+  dryrun      in subprocesses, on the CPU (fake tensors, a fake process
+              group): ``launch.dryrun``'s record of olmo_1b x train_4k on
+              the 16 x 16 production mesh, and the train phase's own step
+              counted on a 1-GPU mesh, its H100 roofline terms beside the
+              train phase's measured median step (``measured_over_roofline``);
   trace_check (not run by default) the profiler's lost device events at
               a session's start after the card idled, with and without the
               burst of throwaway kernels every profiled session begins with;
@@ -126,12 +136,13 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 operations/s
-#: outside the tensor cores — the rate the CRC's integer steps and float32
-#: attention are held to — and dense bf16 tensor-core operations/s
-HBM_BYTES_PER_S = 3.35e12
-CUDA_CORE_OPS_PER_S = 67e12
-BF16_TENSOR_OPS_PER_S = 989e12
+#: H100 SXM peaks (NVIDIA data sheet; one source, ``launch.mesh``): HBM
+#: bytes/s, float32 operations/s outside the tensor cores — the rate the
+#: CRC's integer steps and float32 attention are held to — and dense bf16
+#: tensor-core operations/s
+from repro_torch.launch.mesh import CUDA_CORE_FLOPS_F32 as CUDA_CORE_OPS_PER_S  # noqa: E402
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_TENSOR_OPS_PER_S  # noqa: E402
 #: integer operations a CRC byte needs by the byte-table recurrence (xor,
 #: and, table load, shift, xor); the kernel's slice-by-16 does about 3, and
 #: either way the bytes bound it
@@ -1384,6 +1395,7 @@ def run_train(dev, *, cfg=None, batch: int = 4, seq: int = 2048, steps: int = 5,
     restore_launches = crc.launches - launches0
     check(start == ckpt_at, f"resumed at step {start}, want {ckpt_at}")
     check(int(state["opt"]["step"]) == ckpt_at, "restored optimizer step")
+    restored = state  # the plain restore, which the reshard must equal
     resumed, resumed_norms = [], []
     for s in range(start, steps):
         state, metrics = step_fn(state, batches[s])
@@ -1395,6 +1407,9 @@ def run_train(dev, *, cfg=None, batch: int = 4, seq: int = 2048, steps: int = 5,
     check(all(math.isfinite(x) for x in resumed_norms), "a resumed grad norm is not finite")
     check(flash.launches == 0, f"training launched the flash kernel {flash.launches}x")
     check(not cuda or restore_launches > 0, "the restore launched no CRC kernel")
+    del state
+    reshard = run_reshard(mgr, model, restored, batches[ckpt_at], resumed[0], dev)
+    del restored
 
     tokens = batch * seq
     median = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
@@ -1411,7 +1426,6 @@ def run_train(dev, *, cfg=None, batch: int = 4, seq: int = 2048, steps: int = 5,
             "tokens_per_s": tokens / (median / 1e3),
             "model_flop_per_step": flop, "flop_bound_ms": flop_bound_ms,
             "flop_share": flop_bound_ms / median,
-            "flop_note": "6*N*T only: remat and attention add about 40% on top",
             "opt_update_ms": opt_ms, "opt_bytes": opt_bytes,
             "opt_bound_ms": opt_bound_ms, "profiled_step": busy,
             "max_memory_allocated": peak, "state_bytes": state_bytes,
@@ -1421,7 +1435,139 @@ def run_train(dev, *, cfg=None, batch: int = 4, seq: int = 2048, steps: int = 5,
             "save_ms": save["ms"], "save_shards": save["shards"],
             "restore_ms": restore_ms, "restore_crc_launches": restore_launches,
             "restore_crc_shapes": restore_shapes,
-            "flash_launches": flash.launches}
+            "flash_launches": flash.launches, "reshard": reshard}
+
+
+def one_device_mesh(dev):
+    """A (1, 1) ("data", "model") mesh of ``dev``: an NCCL group of one on
+    the card (``launch.mesh.one_card_mesh``), a gloo group of one on the
+    CPU.  The caller destroys the group."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as M
+    if dev.type == "cuda":
+        return M.one_card_mesh(dev)
+    dist.init_process_group("gloo", rank=0, world_size=1, store=dist.HashStore())
+    return M.make_test_mesh(data=1, model=1)
+
+
+#: leaves whose placements the reshard prints
+RESHARD_LEAVES = ("['params']['embed']['table']", "['params']['layers'][0]['attn']['wq']",
+                  "['opt']['m']['layers'][0]['mlp']['wo']")
+
+
+def run_reshard(mgr, model, plain, batch, plain_loss: float, dev) -> dict:
+    """``launch.elastic.reshard_restore`` of the newest checkpoint in
+    ``mgr`` (no new save) onto a 1 x 1 mesh of ``dev``: fails unless every
+    leaf's full tensor is bit-equal to ``plain``'s (the plain restore), the
+    restore launched the CRC kernel on the card, and ``train_loss`` on the
+    DTensor parameters at ``batch`` equals ``plain_loss`` (the plain
+    restore's loss there) within ``RESUME_REL``.  The process group goes
+    when it is done."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.kernels import ops
+    from repro_torch.launch.elastic import reshard_restore
+    from repro_torch.models.convert import to_reference_tree
+    from repro_torch.train.step import make_train_state_abstract
+    from repro_torch.tree import flatten_with_path
+
+    crc = ops.COUNTS["crc32_batch"]
+    mesh = one_device_mesh(dev)
+    try:
+        template = to_reference_tree(make_train_state_abstract(model))
+        launches0, shapes0 = crc.launches, dict(crc.shapes)
+        ms, (step, state) = wall_ms(
+            lambda: reshard_restore(mgr, template, mesh, model.cfg.n_experts), dev)
+        launches = crc.launches - launches0
+        shapes = {str(k): n - shapes0.get(k, 0) for k, n in crc.shapes.items()
+                  if n != shapes0.get(k, 0)}
+        check(step is not None, "the reshard found no checkpoint")
+        got, want = flatten_with_path(state), flatten_with_path(plain)
+        check([p for p, _ in got] == [p for p, _ in want], "the reshard's tree differs")
+        for (path, a), (_q, b) in zip(got, want):
+            full = a.full_tensor() if isinstance(a, DTensor) else a
+            check(full.dtype == b.dtype and bool(torch.equal(full, b)),
+                  f"resharded {path} != the plain restore's")
+        check(dev.type != "cuda" or launches > 0, "the reshard's restore launched no CRC kernel")
+        with torch.no_grad(), implicit_replication():
+            loss = model.train_loss(state["params"], batch)
+        loss = float(loss.full_tensor() if isinstance(loss, DTensor) else loss)
+        check(abs(loss - plain_loss) <= RESUME_REL * abs(plain_loss),
+              f"loss on the resharded state {loss} != the plain restore's {plain_loss}")
+        leaves = dict(got)
+        return {"reshard_ms": ms, "step": step, "mesh": dict(zip(mesh.mesh_dim_names,
+                                                                 mesh.shape)),
+                "leaves_bit_equal": len(got), "crc_launches": launches,
+                "crc_shapes": shapes, "loss": loss, "plain_loss": plain_loss,
+                "loss_bitwise_equal": loss == plain_loss,
+                "placements": {n: [repr(p) for p in leaves[n].placements]
+                               for n in RESHARD_LEAVES}}
+    finally:
+        dist.destroy_process_group()
+
+
+#: the dry-run phase's production cell: arch, shape, mesh (16 x 16, fake)
+DRYRUN_CELL = ("olmo_1b", "train_4k", "single")
+
+
+def dryrun_summary(rec: dict, step_ms=None) -> dict:
+    """The roofline terms of a ``launch.dryrun`` record beside a measured
+    step: ``measured_over_roofline`` is the step's time over the record's
+    critical path (its largest term), None without a measured step."""
+    crit = max(rec["compute_s"], rec["memory_s"], rec["collective_s"])
+    out = {k: rec[k] for k in ("arch", "shape", "mesh", "chips", "layers", "compute_s",
+                               "memory_s", "collective_s", "dominant", "roofline_fraction",
+                               "useful_fraction", "hlo_flops_total", "model_flops",
+                               "collective_bytes_per_chip", "bytes_per_device", "lower_s")}
+    out["roofline_ms"] = crit * 1e3
+    out["measured_step_ms"] = step_ms
+    out["measured_over_roofline"] = step_ms / (crit * 1e3) if step_ms and crit else None
+    return out
+
+
+def run_dryrun(dev, *, train=None, cell=DRYRUN_CELL, layers: int = TRAIN_LAYERS,
+               batch: int = 4, seq: int = 2048, out_dir=None) -> dict:
+    """``launch.dryrun`` in two subprocesses side by side (a fake process
+    group must not share a process with NCCL; neither touches the card):
+    ``cell``'s record on the fake production mesh, and the train phase's
+    own step (olmo_1b at ``layers`` layers, ``batch`` x ``seq``, remat as
+    configured) counted on a 1-GPU mesh, its terms beside ``train``'s
+    measured median step.  Fails if either subprocess fails."""
+    import os
+    import tempfile
+    root = Path(__file__).resolve().parent
+    out = Path(out_dir or tempfile.mkdtemp(prefix="dryrun_"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src"), os.environ.get("PYTHONPATH", "")]))
+    arch, shape, mesh = cell
+    one = ("from repro_torch.configs.base import ShapeConfig\n"
+           "from repro_torch.launch.dryrun import run_cell\n"
+           f"run_cell('olmo_1b', 'train_phase', 'one', {str(out)!r}, "
+           f"{{'n_layers': {layers}}}, shape=ShapeConfig('train_phase', {seq}, {batch}, "
+           "'train'))")
+    cmds = {"cell": [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                     "--shape", shape, "--mesh", mesh, "--out", str(out)],
+            "train_phase": [sys.executable, "-c", one]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, cwd=root, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True) for k, c in cmds.items()}
+    try:
+        done = {k: (p.communicate(timeout=600), p.returncode) for k, p in procs.items()}
+    finally:
+        for p in procs.values():  # a failed phase leaves no process behind
+            p.kill()
+            p.wait()
+    failed = {k: f"exit {rc}: {err[-3000:]}" for k, ((_out, err), rc) in done.items() if rc}
+    check(not failed, f"dry-run subprocesses failed: {failed}")
+    wall_s = time.perf_counter() - t0
+    cell_rec = json.loads((out / f"{arch}__{shape}__{mesh}.json").read_text())
+    train_rec = json.loads((out / "olmo_1b__train_phase__one.json").read_text())
+    check(cell_rec["ok"] and train_rec["ok"], "a dry-run record is not ok")
+    step_ms = (train or {}).get("step_ms_median_2_on")
+    return {"wall_s": wall_s, "cell": cell_rec,
+            "train_phase": dryrun_summary(train_rec, step_ms)}
 
 
 # ------------------------------------------------------- the DES phases
@@ -1883,7 +2029,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="device,crc32,flash_attention,kv_pages,"
                     "checkpoint,ycsb,serve_at_load,serve,serve_gemma3,serve_granite_moe,"
                     "serve_gemma3_12b,serve_rwkv6,serve_zamba2,serve_whisper,"
-                    "train,kernels")
+                    "train,dryrun,kernels")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     import torch
@@ -1911,6 +2057,7 @@ def main(argv=None) -> int:
     launches = {name: 0 for name in ops.COUNTS}
     shapes = {name: {} for name in ops.COUNTS}
     des_shapes = {}  # the CRC batches of the DES phases' main paths
+    results = {}
     runs = [("kv_pages", run_kv_pages), ("checkpoint", run_checkpoint),
             ("ycsb", run_ycsb), ("serve_at_load", run_serve_at_load),
             ("serve", run_serve), ("serve_gemma3", run_serve_gemma3),
@@ -1940,6 +2087,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         res = run(dev)
         emit(name, card=info["nvidia_smi"], phase_s=time.perf_counter() - t0, **res)
+        results[name] = res
         for kname, count in ops.COUNTS.items():
             launches[kname] += count.launches
             for k, v in count.shapes.items():
@@ -1947,6 +2095,10 @@ def main(argv=None) -> int:
         if name in ("ycsb", "serve_at_load"):
             for k, v in ops.COUNTS["crc32_batch"].shapes.items():
                 des_shapes[k] = des_shapes.get(k, 0) + v
+    if "dryrun" in phases:
+        t0 = time.perf_counter()
+        res = run_dryrun(dev, train=results.get("train"))
+        emit("dryrun", card=info["nvidia_smi"], phase_s=time.perf_counter() - t0, **res)
     emit("traces", **TRACES)
     if "kernels" in phases:
         entries = []

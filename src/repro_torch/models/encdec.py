@@ -28,6 +28,7 @@ import torch
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import attention as A
 from repro_torch.models.layers import basic as B
+from repro_torch.sharding.rules import constrain_batch
 from repro_torch.tree import index_tree, stack_trees
 
 
@@ -67,7 +68,7 @@ def encode(cfg, params, frames, *, train: bool = False):
     on a CUDA tensor; training takes the plain branch and rematerializes
     each layer under ``remat == "full"``."""
     dev = params["dec_pos"].device
-    x = torch.as_tensor(frames, device=dev).to(B.dtype_of(cfg))
+    x = constrain_batch(torch.as_tensor(frames, device=dev).to(B.dtype_of(cfg)))
     x = x + B.sinusoidal_positions(x.shape[1], cfg.d_model, dev).to(x.dtype)
     flash = x.is_cuda and not train
     remat = train and cfg.remat == "full"
@@ -82,6 +83,7 @@ def _dec_layer(cfg, lp, x, enc_out, *, self_kv=None, cross_kv=None, pos=None,
     """One decoder layer: over the whole sequence when ``self_kv`` is None
     (train, prefill), else one token against the caches.  Returns (x, new
     self K/V — (k, v), or the updated cache dict — and the cross (k, v))."""
+    x = constrain_batch(x)
     Bsz, S, _ = x.shape
     z = B.apply_norm(lp["ln1"], x, cfg.norm)
     q, k, v = A.qkv(lp["self_attn"], z, cfg)

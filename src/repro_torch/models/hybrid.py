@@ -29,6 +29,7 @@ import torch
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import basic as B
 from repro_torch.models.layers import ssm as S
+from repro_torch.sharding.rules import constrain_batch
 from repro_torch.tree import index_tree, stack_trees
 
 
@@ -56,6 +57,7 @@ def init_lm(cfg, gen: torch.Generator) -> Dict:
 
 
 def _ssm_layer_fwd(cfg, lp, x, state=None):
+    x = constrain_batch(x)
     h = B.apply_norm(lp["ln"], x, cfg.norm)
     if state is None:
         y, new_state = S.apply_ssm(lp["ssm"], h, cfg, None)
@@ -65,7 +67,9 @@ def _ssm_layer_fwd(cfg, lp, x, state=None):
 
 
 def _shared_fwd(cfg, sp, x, positions, *, flash: bool):
-    """The shared block over the whole sequence -> (x, (k, v))."""
+    """The shared block over the whole sequence -> (x, (k, v)); ``block_fwd``
+    pins its input's batch (``constrain_batch``), as the reference's
+    ``_shared_fwd`` does."""
     x, kv, _aux = T.block_fwd(cfg, sp, x, positions, "full", flash=flash, aux=False)
     return x, kv
 

@@ -11,9 +11,13 @@ any kernel too) and decode attention, whose products stay
 prefill attention goes through the flash kernel on the card
 (``models.transformer.block_fwd``), except a window layer longer than its
 window, which runs ``banded_attention`` here on every device (the
-reference's kernel has no window either).  The reference's sharding hints
-(``constrain_batch*``) are no-ops without a mesh and are dropped, and so
-are the query offsets, which no family's path passes.
+reference's kernel has no window either).  On a mesh the four attentions
+run on each device's (batch, head) shards (``sharding.rules.local_heads``:
+K/V's sequence gathered once a call, as the reference's
+``constrain_batch_only`` hoists it once a layer), and a projection whose
+sharding does not divide its heads is gathered before it is split
+(``splittable``); both are the identity on plain tensors.  The query
+offsets of the reference, which no family's path passes, are dropped.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers.basic import apply_rope, dense_init, dtype_of, remat
+from repro_torch.sharding.rules import local_heads, splittable
 
 NEG_INF = -1e30
 
@@ -47,9 +52,11 @@ def qkv(params: Dict, x: torch.Tensor, cfg, positions=None, *, kv_x=None):
     B, S, _ = x.shape
     src = x if kv_x is None else kv_x
     Skv = src.shape[1]
-    q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = (src @ params["wk"]).reshape(B, Skv, cfg.n_kv_heads, cfg.head_dim)
-    v = (src @ params["wv"]).reshape(B, Skv, cfg.n_kv_heads, cfg.head_dim)
+    q = splittable(x @ params["wq"], -1, cfg.n_heads).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = splittable(src @ params["wk"], -1, cfg.n_kv_heads).reshape(
+        B, Skv, cfg.n_kv_heads, cfg.head_dim)
+    v = splittable(src @ params["wv"], -1, cfg.n_kv_heads).reshape(
+        B, Skv, cfg.n_kv_heads, cfg.head_dim)
     if positions is not None and cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         if kv_x is None:
@@ -78,6 +85,7 @@ def _kv_chunk(qg, kj, vj, q_pos, kv_pos, causal: bool, m, l, acc):
     return m_new, l_new, acc_new
 
 
+@local_heads
 def chunked_attention(q, k, v, cfg, *, causal: bool = True) -> torch.Tensor:
     """Online-softmax attention over KV chunks.  q:(B,Sq,H,hd), k/v:(B,Skv,KV,hd).
     Each chunk's body is rematerialized in the backward pass (``remat``), so
@@ -119,6 +127,7 @@ def _band_chunk(qi, kj, vj, start: int, window: int, scale: float):
     return torch.einsum("bqkgc,bckh->bqkgh", p, vj.float())
 
 
+@local_heads
 def banded_attention(q, k, v, cfg, *, window: int) -> torch.Tensor:
     """Sliding-window causal attention: each query chunk sees [start-W,
     chunk_end), so compute is O(S·(W+cq)).  q:(B,S,H,hd), k/v:(B,S,KV,hd).
@@ -142,6 +151,7 @@ def banded_attention(q, k, v, cfg, *, window: int) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ full (enc)
+@local_heads
 def full_attention(q, k, v, *, causal: bool) -> torch.Tensor:
     """Small-sequence dense attention."""
     B, Sq, H, hd = q.shape
@@ -157,6 +167,7 @@ def full_attention(q, k, v, *, causal: bool) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------- decode
+@local_heads
 def decode_attention(q, k_cache, v_cache, kv_positions, pos, *, window: int = 0):
     """One-token attention against a cache.
     q: (B,1,H,hd); caches: (B,C,KV,hd); kv_positions: (C,) absolute positions

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding.rules import constrain_batch, lookup, replicate_dim
+
 
 def remat(fn, *args):
     """``fn(*args)``, with its intermediate activations recomputed in the
@@ -156,7 +158,7 @@ def init_embedding(cfg, gen: torch.Generator) -> Dict:
 
 
 def embed(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens.long()]
+    return lookup(params["table"], tokens.long())
 
 
 def unembed(params: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -175,9 +177,11 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Ten
 
 
 def _ce_chunk(embed_params: Dict, xc, tc, wc) -> torch.Tensor:
+    xc = constrain_batch(xc)
     logits = unembed(embed_params, xc).float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, tc[..., None])[..., 0]
+    # on a mesh the gold logit is read from the whole vocab (``replicate_dim``)
+    gold = torch.gather(replicate_dim(logits, 2), -1, tc[..., None])[..., 0]
     return ((logz - gold) * wc).sum()
 
 

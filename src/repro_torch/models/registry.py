@@ -12,6 +12,8 @@ get_model(cfg, device) -> namespace with:
   prefill(params, batch)               — (last_logits, cache)
   decode_step(params, cache, token)
   init_cache(batch_size, seq_len)      — empty cache on ``device``
+  input_specs(shape)                   — meta-device stand-ins for every
+                                         input of ``shape``'s step kind
 ``family_module`` routes a config as the reference's ``_family_module``
 does: the transformer serves the dense, moe and vlm families,
 ``rwkv_model`` the ssm family, ``hybrid`` and ``encdec`` theirs.
@@ -24,7 +26,7 @@ from types import SimpleNamespace
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, hybrid, rwkv_model, transformer
 
 
@@ -61,6 +63,28 @@ def get_model(cfg: ModelConfig, device="cuda") -> SimpleNamespace:
         with torch.device("meta"):
             return build(torch.Generator(), max_seq)
 
+    def input_specs(shape: ShapeConfig):
+        """The reference's ``input_specs``: meta tensors (shapes and dtypes,
+        no storage) for a train or prefill batch — tokens, plus encdec's
+        frames or vlm's patches in the config's dtype — or, for decode, one
+        token and a cache holding ``seq_len`` of history."""
+        meta = torch.device("meta")
+        B, S = shape.global_batch, shape.seq_len
+        tok = torch.empty((B, S), dtype=torch.int32, device=meta)
+        dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        if shape.kind in ("train", "prefill"):
+            batch = {"tokens": tok}
+            if cfg.family == "encdec":
+                batch["frames"] = torch.empty((B, cfg.encoder_seq, cfg.d_model),
+                                              dtype=dt, device=meta)
+            if cfg.family == "vlm":
+                batch["patches"] = torch.empty((B, cfg.n_patches, cfg.d_model),
+                                               dtype=dt, device=meta)
+            return batch
+        # decode: one token + a cache holding seq_len of history
+        return {"token": torch.empty((B, 1), dtype=torch.int32, device=meta),
+                "cache": mod.init_cache(cfg, B, S, device=meta)}
+
     return SimpleNamespace(
         cfg=cfg,
         device=dev,
@@ -70,4 +94,5 @@ def get_model(cfg: ModelConfig, device="cuda") -> SimpleNamespace:
         prefill=functools.partial(mod.prefill, cfg),
         decode_step=functools.partial(mod.decode_step, cfg),
         init_cache=functools.partial(mod.init_cache, cfg, device=dev),
+        input_specs=input_specs,
     )

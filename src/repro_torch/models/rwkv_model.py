@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.models.layers import basic as B
 from repro_torch.models.layers import rwkv as R
+from repro_torch.sharding.rules import constrain_batch
 from repro_torch.tree import index_tree, stack_trees
 
 
@@ -33,6 +34,7 @@ def init_lm(cfg, gen: torch.Generator) -> Dict:
 
 
 def _block(cfg, lp, x, state=None):
+    x = constrain_batch(x)
     tm_state = None if state is None else state["tm"]
     cm_state = None if state is None else state["cm"]
     h = B.apply_norm(lp["ln1"], x, cfg.norm)

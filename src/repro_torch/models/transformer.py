@@ -60,6 +60,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import attention as A
 from repro_torch.models.layers import basic as B
 from repro_torch.models.layers import moe as M
+from repro_torch.sharding.rules import constrain_batch
 from repro_torch.tree import index_tree, stack_trees
 
 CACHE_PAD = 128  # decode caches get S + CACHE_PAD capacity
@@ -93,8 +94,12 @@ def _zero(x) -> torch.Tensor:
 
 def _mix(cfg, p, x, attn_out, *, aux: bool = True):
     """Residual attn-out projection + MLP/MoE.  Returns (x, aux_loss): 0
-    without MoE, and None when ``aux`` is False (decode)."""
-    x = x + attn_out @ p["attn"]["wo"]
+    without MoE, and None when ``aux`` is False (decode).  On a mesh the
+    residual is pinned (``constrain_batch``) before the norm: DTensor would
+    otherwise carry the row-parallel projection's partial sums through the
+    norm's scaling into the MLP, which then runs whole on every 'model'
+    device; GSPMD reduces them here by itself."""
+    x = constrain_batch(x + attn_out @ p["attn"]["wo"])
     h = B.apply_norm(p["ln2"], x, cfg.norm)
     if "moe" not in p:
         return x + B.apply_mlp(p["mlp"], h, cfg), (_zero(x) if aux else None)
@@ -124,6 +129,7 @@ def block_fwd(cfg, p, x, positions, kind: str, *, flash: bool,
     its window runs banded attention; otherwise ``flash`` sends the
     attention to the flash kernel (a causal mask equals the window's
     there), else to the plain branch."""
+    x = constrain_batch(x)
     B_, S, _ = x.shape
     h = B.apply_norm(p["ln1"], x, cfg.norm)
     q, k, v = A.qkv(p["attn"], h, cfg, positions)
@@ -147,6 +153,7 @@ def _quantize_kv(t):
 def block_decode(cfg, p, x, lcache, pos, kind: str):
     """x: (B,1,d); lcache: dict(k, v, kv_pos[, k_scale, v_scale]) for this
     layer, a ring buffer when kind == 'window'."""
+    x = constrain_batch(x)
     B_ = x.shape[0]
     h = B.apply_norm(p["ln1"], x, cfg.norm)
     q, k, v = A.qkv(p["attn"], h, cfg, pos.reshape(1))
@@ -218,6 +225,7 @@ def _embed_inputs(cfg, params, batch):
     if cfg.family == "vlm":
         patches = torch.as_tensor(batch["patches"], device=x.device)
         x = torch.cat([patches.to(x.dtype), x], dim=1)
+    x = constrain_batch(x)
     positions = torch.arange(x.shape[1], device=x.device)
     return x, positions
 

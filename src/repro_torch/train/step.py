@@ -17,6 +17,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.sharding.rules import splittable
 from repro_torch.tree import flatten_with_path, map_leaves, unflatten
 
 TrainState = Dict[str, Any]  # {"params": ..., "opt": {m, v, step}}
@@ -58,13 +59,15 @@ def make_train_step(model, opt_cfg: AdamWConfig = AdamWConfig(),
             loss, grads = loss_and_grads(loss_fn, params, batch)
         else:
             def split(x):
-                x = torch.as_tensor(x)
+                # on a mesh the batch is gathered first when its shards do
+                # not divide the microbatch count (``splittable``)
+                x = splittable(torch.as_tensor(x), 0, n_microbatches)
                 b = x.shape[0]
                 return x.reshape(n_microbatches, b // n_microbatches, *x.shape[1:])
             micro = {k: split(v) for k, v in batch.items()}
             loss = torch.zeros((), dtype=torch.float32, device=model.device)
-            grads = map_leaves(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                     device=p.device), params)
+            # zeros laid out as the parameter (a DTensor's placements too)
+            grads = map_leaves(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             for i in range(n_microbatches):
                 l, g = loss_and_grads(loss_fn, params, {k: v[i] for k, v in micro.items()})
                 loss = loss + l

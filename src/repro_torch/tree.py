@@ -7,7 +7,7 @@ leaf, and a leaf's path string equals ``jax.tree_util.keystr`` of its key path
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List, Sequence, Tuple
+from typing import Any, Callable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -25,15 +25,18 @@ def _is_node(node) -> bool:
     return isinstance(node, (dict, list, tuple))
 
 
-def flatten_with_path(tree, prefix: str = "") -> List[Tuple[str, Any]]:
-    """[(keystr path, leaf)] in JAX's leaf order."""
+def flatten_with_path(tree, prefix: str = "",
+                      is_leaf: Optional[Callable[[Any], bool]] = None
+                      ) -> List[Tuple[str, Any]]:
+    """[(keystr path, leaf)] in JAX's leaf order; ``is_leaf`` stops the
+    descent at a node it accepts, as JAX's does (a spec tree's tuples)."""
     if tree is None:
         return []
-    if not _is_node(tree):
+    if not _is_node(tree) or (is_leaf is not None and is_leaf(tree)):
         return [(prefix, tree)]
     out: List[Tuple[str, Any]] = []
     for part, child in _children(tree):
-        out.extend(flatten_with_path(child, prefix + part))
+        out.extend(flatten_with_path(child, prefix + part, is_leaf))
     return out
 
 

@@ -151,6 +151,20 @@ def test_train_phase_on_cpu():
     n = out["params"]
     assert out["opt_bytes"] == 22 * n
     assert out["flop_bound_ms"] == pytest.approx(6 * n * 64 / 989e12 * 1e3)
+    # the checkpoint again, through reshard_restore onto a 1 x 1 gloo mesh
+    r = out["reshard"]
+    assert r["step"] == 3 and r["mesh"] == {"data": 1, "model": 1}
+    from repro_torch.models import get_model
+    from repro_torch.train.step import make_train_state_abstract
+    from repro_torch.tree import flatten_with_path
+    assert r["leaves_bit_equal"] == len(flatten_with_path(
+        make_train_state_abstract(get_model(tiny_olmo(), "cpu"))))
+    assert r["crc_launches"] == 0 and r["loss_bitwise_equal"]
+    assert r["loss"] == out["resumed_losses"][0]
+    assert sorted(r["placements"]) == sorted(chip_smoke.RESHARD_LEAVES)
+    assert all(p == ["Replicate()", "Replicate()"] for p in r["placements"].values())
+    import torch.distributed as dist
+    assert not dist.is_initialized()  # the phase's group is gone
 
 
 def test_full_config_train_bounds():
@@ -648,3 +662,40 @@ def test_des_phases_run_before_serving():
     order = [src.index(f'"{name}"') for name in ("checkpoint", "ycsb", "serve_at_load",
                                                  "serve_gemma3")]
     assert order == sorted(order)
+
+
+def test_dryrun_phase_runs_after_train_and_before_kernels():
+    import inspect
+    src = inspect.getsource(chip_smoke.main)
+    assert "train,dryrun,kernels" in src
+    order = [src.index(f'"{name}" in phases') for name in ("dryrun", "kernels")]
+    assert order == sorted(order)
+
+
+def test_dryrun_summary_pairs_the_measured_step_with_the_roofline():
+    rec = {"arch": "olmo_1b", "shape": "train_phase", "mesh": "one", "chips": 1,
+           "layers": 8, "compute_s": 0.045, "memory_s": 0.32, "collective_s": 0.0,
+           "dominant": "memory", "roofline_fraction": 0.099, "useful_fraction": 0.70,
+           "hlo_flops_total": 4.47e13, "model_flops": 3.15e13,
+           "collective_bytes_per_chip": 0.0, "bytes_per_device": {}, "lower_s": 5.6}
+    out = chip_smoke.dryrun_summary(rec, 520.0)
+    assert out["roofline_ms"] == pytest.approx(320.0)
+    assert out["measured_over_roofline"] == pytest.approx(520.0 / 320.0)
+    assert chip_smoke.dryrun_summary(rec)["measured_over_roofline"] is None
+    rec["collective_s"] = 0.5  # the largest term is the critical path
+    assert chip_smoke.dryrun_summary(rec, 1000.0)["measured_over_roofline"] == \
+        pytest.approx(2.0)
+
+
+def test_dryrun_phase_on_cpu(tmp_path):
+    """The phase at a tiny size: a decode cell on the 16 x 16 fake mesh and
+    one olmo_1b layer at 2 x 64 on a 1-GPU mesh, in subprocesses."""
+    out = chip_smoke.run_dryrun(torch.device("cpu"), train={"step_ms_median_2_on": 100.0},
+                                cell=("olmo_1b", "decode_32k", "single"), layers=1,
+                                batch=2, seq=64, out_dir=tmp_path)
+    cell, phase = out["cell"], out["train_phase"]
+    assert cell["ok"] and cell["chips"] == 256 and cell["shape"] == "decode_32k"
+    assert cell["collective_bytes_per_chip"] > 0
+    assert phase["chips"] == 1 and phase["layers"] == 1 and phase["collective_s"] == 0
+    assert phase["measured_over_roofline"] == pytest.approx(100.0 / phase["roofline_ms"])
+    assert phase["dominant"] in ("compute", "memory")

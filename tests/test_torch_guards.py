@@ -39,7 +39,27 @@ CHANGED = {
     "core/layout.py": {"verify_records", "view_record"},
     "serving/load.py": {"capture_page_fetch_traces",
                         "capture_migration_traces"},
+    # the DeviceMesh port: MeshInfo reads a torch mesh's names and sizes,
+    # specs are the port's PartitionSpec, trees the port's, and the
+    # activation hooks DTensor redistributions
+    "sharding/rules.py": {"PartitionSpec.__new__", "PartitionSpec.__repr__", "is_spec",
+                          "MeshInfo.axis_names", "MeshInfo.shape", "MeshInfo.multi_pod",
+                          "MeshInfo.model_size", "MeshInfo.data_size",
+                          "MeshInfo.fsdp_size", "placements", "distribute_tree",
+                          "_redistribute", "constrain_batch_only", "constrain_batch",
+                          "replicate_dim", "splittable", "lookup", "local_heads",
+                          "_ContiguousGrad.forward", "_ContiguousGrad.backward",
+                          "_path_str", "param_specs", "batch_spec",
+                          "_dtype_name", "cache_specs"},
+    # collectives come as records, not HLO text; the H100's peaks
+    "roofline/analysis.py": {"collective_bytes", "roofline_terms"},
+    "launch/sweep.py": set(),
 }
+#: reference functions a changed copy drops, with what replaced them
+DROPPED = {"roofline/analysis.py": {"_shape_bytes",                  # collective_bytes
+                                   "collective_bytes_from_hlo"},
+           # DTensor cannot carry sequence parallelism (rules.constrain_batch)
+           "sharding/rules.py": {"set_activation_seq_axis"}}
 
 
 def port_modules():
@@ -148,10 +168,11 @@ def functions(source: str):
 def test_changed_copies_drift_only_where_ported(rel):
     ref = functions(ported_text(rel))
     port = functions((PORT / rel).read_text())
-    allowed = CHANGED[rel]
+    allowed, dropped = CHANGED[rel], DROPPED.get(rel, set())
     assert allowed <= set(port)
+    assert dropped <= set(ref) - set(port)
     for name, dump in ref.items():
-        if name not in allowed:
+        if name not in allowed | dropped:
             assert port.get(name) == dump, f"{rel}: {name} drifted"
     assert set(port) - set(ref) <= allowed
 

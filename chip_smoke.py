@@ -52,9 +52,8 @@ Phases, each printing one JSON line and raising on any mismatch:
               the CRC kernel, and each prefill must launch the flash kernel
               exactly once a global layer (10), on the tensor-core route at
               (32, 1536, 128): the local layers' banded attention stays off
-              it; first the local_global (8 layers, 160 tokens) and vlm
-              (pixtral) models on the card against the CPU on small f32
-              configs;
+              it; first the local_global model (8 layers, 160 tokens) on the
+              card against the CPU on a small f32 config;
   serve_granite_moe  granite_moe_3b at its full config (32 MoE layers, 40
               experts top-8; 3.30e9 parameters, random from a seed): 4
               requests x 1024 prompt tokens (4 dispatch groups of 256 a row),
@@ -88,6 +87,13 @@ Phases, each printing one JSON line and raising on any mismatch:
               at (48, 1500, 64) (the encoder, not causal) and 12 at (48, 64,
               64) (the decoder); the cross-attention stays plain; first
               whisper scaled down on the card against the CPU;
+  serve_pixtral  pixtral_12b at its full config (40 layers, d 5120: the
+              decoder is mistral_nemo_12b's, 11.58e9 parameters): 1 request
+              of 256 patch embeddings and 1024 tokens, as serve_gemma3 —
+              each prefill must launch the flash kernel exactly once a layer
+              (40) at (32, 1280, 128), and the parameters must number
+              mistral_nemo_12b's closed form; first pixtral scaled down on
+              the card against the CPU;
   each serve phase's parameters must number the family's exact count
   (``exact_param_count``);
   train       olmo_1b at its full widths and 8 of its 16 layers
@@ -104,6 +110,18 @@ Phases, each printing one JSON line and raising on any mismatch:
               the card (NCCL, world 1): every leaf bit-equal to the plain
               restore's, the CRC kernel launched, and the loss on the
               DTensor parameters equal to the plain one (rel 1e-4);
+  train_families  one config of every other family at its full widths and
+              the least depth that holds each kind of layer it has
+              (``TRAIN_FAMILIES``: granite_moe_3b 2 layers, gemma3_12b one
+              5:1 unit, pixtral_12b 2, rwkv6_1p6b 2, zamba2_1p2b a group
+              and its tail, whisper_small whole): 4 steps of 2 rows each,
+              finite losses, no flash launch, a peak under 80 GB; whisper
+              also checkpoints after step 2 and a fresh trainer resumes
+              (losses equal, the CRC kernel launched); first one train step
+              of rwkv6, zamba2 and whisper on the card against the CPU;
+  examples    the five ported examples (examples/*_torch.py), side by side
+              in subprocesses at their own defaults: each must exit 0, and
+              each that reads the store must launch the CRC kernel;
   dryrun      in subprocesses, on the CPU (fake tensors, a fake process
               group): ``launch.dryrun``'s record of olmo_1b x train_4k on
               the 16 x 16 production mesh, and the train phase's own step
@@ -171,6 +189,14 @@ GEMMA3_12B_RESTORE_CRC = (5, 41943060)
 RWKV6_RESTORE_CRC = (4, 12582931)
 ZAMBA2_RESTORE_CRC = (8, 37748755)
 WHISPER_RESTORE_CRC = (6, 27648019)
+#: ... of serve_pixtral: rows padded to the ['full']['k'] leaf (115,343,360
+#: B: 40 layers x 1 request x (256 patches + 1024 tokens + 128) x 8 x 128
+#: bf16), as many rows as the cache has leaves
+PIXTRAL_RESTORE_CRC = (4, 28835859)
+#: row widths of the wide CRC batches the kernels line reports against
+#: zlib only (rows past ``PLAIN_CRC_WORDS``): the serve_pixtral restore's,
+#: and a checkpoint restore's 4 MiB shards (the train and whisper restores)
+WIDE_CRC_WIDTHS = (PIXTRAL_RESTORE_CRC[1], 1048581)
 
 #: the DES phases.  The paper's scheme comparison (§5.1): one cold read and
 #: one update of each scheme at these value sizes, over ``SimTransport``,
@@ -248,6 +274,9 @@ ZAMBA2_PREFILL_FLASH = {(128, 1024, 64, "bfloat16"): 6}
 #: requests x 12 heads; the 12 cross-attentions (64 queries, 1500 keys)
 #: stay plain
 WHISPER_PREFILL_FLASH = {(48, 1500, 64, "bfloat16"): 12, (48, 64, 64, "bfloat16"): 12}
+#: ... one serve_pixtral prefill: every layer (40), 1 request x 32 heads
+#: over its 256 patch embeddings and 1024 tokens
+PIXTRAL_PREFILL_FLASH = {(32, 1280, 128, "bfloat16"): 40}
 #: launch keys of a main path whose attention is not causal (a launch key
 #: has no mask): whisper's encoder
 NON_CAUSAL_FLASH = {(48, 1500, 64, "bfloat16")}
@@ -284,7 +313,20 @@ TRAIN_CHECKS = {"olmo_1b": dict(arch="olmo_1b", seqs=(64, 640)),
                 "pixtral": dict(arch="pixtral_12b", seqs=(24,)),
                 "granite_moe": dict(arch="granite_moe_3b", overrides=GRANITE_K8,
                                     seqs=(64,)),
-                "mixtral": dict(arch="mixtral_8x22b", seqs=(100,))}
+                "mixtral": dict(arch="mixtral_8x22b", seqs=(100,)),
+                # 40 tokens halve the WKV and SSD chunks from 16 to 8; 640
+                # cross the loss's chunk (512 halved to 320)
+                "rwkv6": dict(arch="rwkv6_1p6b", seqs=(40, 640)),
+                "zamba2": dict(arch="zamba2_1p2b",
+                               overrides={"n_layers": 5, "shared_attn_every": 2},
+                               seqs=(40, 640)),
+                # 640 decoder tokens: chunked self-attention (5 chunks of
+                # 128) and two loss chunks
+                "whisper": dict(arch="whisper_small", seqs=(24, 640))}
+
+#: the train checks that run before the train_families phase (the others
+#: before train)
+FAMILY_TRAIN_CHECKS = ("rwkv6", "zamba2", "whisper")
 
 #: olmo_1b widths (src/repro/configs/olmo_1b.py)
 OLMO_1B = dict(d_model=2048, n_kv_heads=16, head_dim=128, d_ff=8192,
@@ -300,7 +342,8 @@ OLMO_1B = dict(d_model=2048, n_kv_heads=16, head_dim=128, d_ff=8192,
 #: layer, and the other hd-256 rows its tile edge, a ragged non-causal tail
 #: and the CUDA-core route; the last three a serve_zamba2 shared block, a
 #: serve_whisper encoder layer (not causal, ragged: 1500 = 23 x 64 + 28)
-#: and a serve_whisper decoder self-attention
+#: and a serve_whisper decoder self-attention; the last a serve_pixtral
+#: layer (256 patches + 1024 tokens)
 FLASH_SHAPES = [((64, 256, 128), "bfloat16", True),
                 ((64, 512, 128), "bfloat16", True),
                 ((32, 2048, 128), "bfloat16", True),
@@ -317,7 +360,8 @@ FLASH_SHAPES = [((64, 256, 128), "bfloat16", True),
                 ((3, 192, 256), "float32", True),
                 ((128, 1024, 64), "bfloat16", True),
                 ((48, 1500, 64), "bfloat16", False),
-                ((48, 64, 64), "bfloat16", True)]
+                ((48, 64, 64), "bfloat16", True),
+                ((32, 1280, 128), "bfloat16", True)]
 #: max |kernel - plain| allowed, by dtype (the reference's tolerances)
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 
@@ -562,7 +606,7 @@ def crc_case(n: int, w: int, seed: int, dev, *, plain: bool = True) -> dict:
 def phase_crc32(dev, shapes=None, *, long=(120, 1048581),
                 serve=(SERVE_RESTORE_CRC, GEMMA3_RESTORE_CRC, GRANITE_RESTORE_CRC,
                        GEMMA3_12B_RESTORE_CRC, RWKV6_RESTORE_CRC, ZAMBA2_RESTORE_CRC,
-                       WHISPER_RESTORE_CRC)) -> list:
+                       WHISPER_RESTORE_CRC, PIXTRAL_RESTORE_CRC)) -> list:
     """Kernel vs plain version vs zlib, exactly, at the listed shapes (the
     chunk-boundary widths among them); then 4 MiB records (a checkpoint
     shard) and the batches of every serve phase's restore against zlib
@@ -1257,6 +1301,25 @@ def run_serve_whisper(dev, *, cfg=None, batch: int = 4, prompt_len: int = 64,
                           restore_crc_words=WHISPER_RESTORE_CRC[1], **kwargs)
 
 
+def run_serve_pixtral(dev, *, cfg=None, prompt_len: int = 1024, **kwargs) -> dict:
+    """pixtral_12b's full config (default), 1 request of its 256 patch
+    embeddings and ``prompt_len`` tokens: the patches go before the text,
+    so on the card each prefill must launch the flash kernel exactly
+    ``PIXTRAL_PREFILL_FLASH`` (every layer at S = 1280); the restore's
+    widest CRC row is ``PIXTRAL_RESTORE_CRC``'s width.  No weight maps the
+    patch embeddings, so at the full config the parameters must number
+    mistral_nemo_12b's closed form: the decoder is that model's."""
+    from repro_torch.configs import get_config
+    out = run_serve_full(dev, "pixtral_12b", cfg=cfg, batch=1, prompt_len=prompt_len,
+                         flash_per_prefill=PIXTRAL_PREFILL_FLASH,
+                         restore_crc_words=PIXTRAL_RESTORE_CRC[1], **kwargs)
+    nemo = exact_param_count(get_config("mistral_nemo_12b")) if cfg is None else None
+    check(nemo is None or out["params"] == nemo,
+          f"{out['params']} parameters, mistral_nemo_12b counts {nemo}")
+    return dict(out, n_patches=(cfg or get_config("pixtral_12b")).n_patches,
+                mistral_nemo_12b_params=nemo)
+
+
 def run_train_check(dev, *, arch: str = "olmo_1b", overrides=None, batch: int = 2,
                     seqs=(64, 640)) -> dict:
     """One train step on ``dev`` against the CPU on the same weights
@@ -1325,55 +1388,116 @@ def run_train_check(dev, *, arch: str = "olmo_1b", overrides=None, batch: int = 
 TRAIN_LAYERS = 8
 
 
+def train_steps(step_fn, state, batches, dev, *, mgr=None, ckpt_at=None,
+                what: str = "train") -> tuple:
+    """The trainer's steps over ``batches`` from ``state``, each timed on the
+    host to a synchronise; with ``mgr``, the state saved after step
+    ``ckpt_at`` (``launch.train.save_train_state``).  Fails unless every
+    loss and grad norm is finite.  Returns (state, {"losses", "grad_norms",
+    "step_ms", "save_ms", "save_shards"}).  Pass ``state`` as an
+    expression, not a name the caller keeps: a kept reference holds the
+    first state on the device through every step."""
+    import math
+    from repro_torch.launch import train as T
+    run = {"losses": [], "grad_norms": [], "step_ms": [], "save_ms": None,
+           "save_shards": None}
+    for s, batch in enumerate(batches):
+        ms, (state, metrics) = wall_ms(lambda: step_fn(state, batch), dev)
+        run["step_ms"].append(ms)
+        run["losses"].append(float(metrics["loss"]))
+        run["grad_norms"].append(float(metrics["grad_norm"]))
+        if mgr is not None and s + 1 == ckpt_at:
+            run["save_ms"], run["save_shards"] = wall_ms(
+                lambda: T.save_train_state(mgr, s + 1, state), dev)
+    check(all(math.isfinite(x) for x in run["losses"] + run["grad_norms"]),
+          f"{what}: a loss or grad norm is not finite: {run['losses']} {run['grad_norms']}")
+    return state, run
+
+
+def resume_train(cfg, mgr, batches, ckpt_at: int, losses, *, lr: float, dev,
+                 what: str = "train") -> tuple:
+    """A fresh trainer (``launch.train``'s step at ``cfg``) restores the
+    newest checkpoint in ``mgr`` and repeats the steps after it over
+    ``batches``.  Fails unless it resumed at ``ckpt_at`` (its optimizer
+    too), its losses equal ``losses`` (the uninterrupted run's) at
+    ``RESUME_REL``, its grad norms are finite and, on the card, the restore
+    launched the CRC kernel.  Returns (model, the restored state, {"restore_ms",
+    "resumed_losses", "resumed_grad_norms", "resumed_bitwise_equal",
+    "restore_crc_launches", "restore_crc_shapes", "restore_crc_widest": the
+    batch of the widest rows, None without a launch})."""
+    from repro_torch.launch import train as T
+    from repro_torch.models import get_model
+    model = get_model(cfg, dev)
+    step_fn = T.trainer_step(model, lr, len(batches))
+    (restore_ms, (start, restored)), launches, shapes = crc_launched(
+        lambda: wall_ms(lambda: T.restore_train_state(mgr, model), dev))
+    check(start == ckpt_at, f"{what}: resumed at step {start}, want {ckpt_at}")
+    check(int(restored["opt"]["step"]) == ckpt_at, f"{what}: restored optimizer step")
+    _state, run = train_steps(step_fn, restored, batches[start:], dev, what=what)
+    resumed = run["losses"]
+    for a, b in zip(resumed, losses[start:]):
+        check(abs(a - b) <= RESUME_REL * abs(b),
+              f"{what}: resumed losses {resumed} != uninterrupted {losses[start:]}")
+    check(dev.type != "cuda" or launches > 0, f"{what}: the restore launched no CRC kernel")
+    return model, restored, {
+        "restore_ms": restore_ms, "resumed_losses": resumed,
+        "resumed_grad_norms": run["grad_norms"],
+        "resumed_bitwise_equal": resumed == losses[start:],
+        "restore_crc_launches": launches,
+        "restore_crc_shapes": {str(k): v for k, v in shapes.items()},
+        "restore_crc_widest": max(shapes, key=lambda k: (k[1], k[0])) if shapes else None}
+
+
+def step_throughput(cfg, n_params: int, step_ms, batch: int, seq: int, tokens: int) -> dict:
+    """The median step from the second on, tokens a second, and the share
+    of the step that ``train_model_flop`` takes at the tensor cores' bf16
+    rate."""
+    import statistics
+    median = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
+    flop = train_model_flop(cfg, n_params, batch, seq)
+    flop_bound_ms = flop / BF16_TENSOR_OPS_PER_S * 1e3
+    return {"step_ms_median_2_on": median, "tokens_per_s": tokens / (median / 1e3),
+            "model_flop_per_step": flop, "flop_bound_ms": flop_bound_ms,
+            "flop_share": flop_bound_ms / median}
+
+
 def run_train(dev, *, cfg=None, batch: int = 4, seq: int = 2048, steps: int = 5,
               ckpt_at: int = 3, lr: float = 3e-4, seed: int = 0) -> dict:
     """The port's trainer (``launch.train``: its step, schedule, batches,
     checkpoint format and sized manager) at ``cfg`` (default: olmo_1b at its
     full widths and ``TRAIN_LAYERS`` layers): ``steps`` steps uninterrupted with a checkpoint after
     ``ckpt_at``, then a fresh trainer restores it and repeats the steps
-    after it.  Fails unless every loss and grad norm is finite, the resumed
-    losses equal the uninterrupted ones at ``RESUME_REL``, and on the card
-    the restore launched the CRC kernel and the flash kernel launched no
-    time (training's attention is the plain branch)."""
-    import math
+    after it (``train_steps``, ``resume_train``).  Fails unless every loss
+    and grad norm is finite, the resumed losses equal the uninterrupted ones
+    at ``RESUME_REL``, and on the card the restore launched the CRC kernel
+    and the flash kernel launched no time (training's attention is the
+    plain branch)."""
     import resource
-    import statistics
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import train as T
     from repro_torch.models import get_model
     from repro_torch.optim import AdamWConfig, adamw_update
-    from repro_torch.train.step import make_train_state
+    from repro_torch.train.step import make_train_state, make_train_state_abstract
     from repro_torch.tree import flatten_with_path
 
     cfg = cfg or dataclasses.replace(get_config("olmo_1b"), n_layers=TRAIN_LAYERS)
     model = get_model(cfg, dev)
     step_fn = T.trainer_step(model, lr, steps)
     batches = [T.batch_at(cfg, seq, batch, s, dev) for s in range(steps)]
-    state = make_train_state(model, seed)
-    n_params = sum(t.numel() for _p, t in flatten_with_path(state["params"]))
-    state_bytes = T.nbytes(state)
+    n_params = sum(t.numel() for _p, t in flatten_with_path(model.init_abstract()))
+    state_bytes = T.nbytes(make_train_state_abstract(model))
     mgr = T.checkpoint_manager_for(state_bytes, saves=1, device=dev)
-    flash, crc = ops.COUNTS["flash_attention"], ops.COUNTS["crc32_batch"]
+    flash = ops.COUNTS["flash_attention"]
     cuda = dev.type == "cuda"
 
     ops.reset_counts()  # the main path starts here
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    losses, norms, step_ms = [], [], []
-    save = {}
-    for s in range(steps):
-        ms, (state, metrics) = wall_ms(lambda: step_fn(state, batches[s]), dev)
-        step_ms.append(ms)
-        losses.append(float(metrics["loss"]))
-        norms.append(float(metrics["grad_norm"]))
-        if s + 1 == ckpt_at:
-            save["ms"], save["shards"] = wall_ms(
-                lambda: T.save_train_state(mgr, s + 1, state), dev)
+    state, run = train_steps(step_fn, make_train_state(model, seed), batches, dev,
+                             mgr=mgr, ckpt_at=ckpt_at)
     peak = torch.cuda.max_memory_allocated(dev) if cuda else None
-    check(all(math.isfinite(x) for x in losses + norms),
-          f"a loss or grad norm is not finite: {losses} {norms}")
 
     # outside the compared runs: the optimizer update alone (the state's
     # parameters stand in for gradients of their shape and dtype) and one
@@ -1384,58 +1508,27 @@ def run_train(dev, *, cfg=None, batch: int = 4, seq: int = 2048, steps: int = 5,
     busy = busy_share(lambda: step_fn(state, batches[-1]), dev, top=8)
     del state
 
-    # a fresh trainer resumes from the store
-    model = get_model(cfg, dev)
-    step_fn = T.trainer_step(model, lr, steps)
-    launches0, shapes0 = crc.launches, dict(crc.shapes)
-    restore_ms, (start, state) = wall_ms(
-        lambda: T.restore_train_state(mgr, model), dev)
-    restore_shapes = {str(k): n - shapes0.get(k, 0) for k, n in crc.shapes.items()
-                      if n != shapes0.get(k, 0)}
-    restore_launches = crc.launches - launches0
-    check(start == ckpt_at, f"resumed at step {start}, want {ckpt_at}")
-    check(int(state["opt"]["step"]) == ckpt_at, "restored optimizer step")
-    restored = state  # the plain restore, which the reshard must equal
-    resumed, resumed_norms = [], []
-    for s in range(start, steps):
-        state, metrics = step_fn(state, batches[s])
-        resumed.append(float(metrics["loss"]))
-        resumed_norms.append(float(metrics["grad_norm"]))
-    for a, b in zip(resumed, losses[start:]):
-        check(abs(a - b) <= RESUME_REL * abs(b),
-              f"resumed losses {resumed} != uninterrupted {losses[start:]}")
-    check(all(math.isfinite(x) for x in resumed_norms), "a resumed grad norm is not finite")
+    # a fresh trainer resumes from the store; its restore, which the
+    # reshard must equal, is kept
+    model, restored, resume = resume_train(cfg, mgr, batches, ckpt_at, run["losses"],
+                                           lr=lr, dev=dev)
     check(flash.launches == 0, f"training launched the flash kernel {flash.launches}x")
-    check(not cuda or restore_launches > 0, "the restore launched no CRC kernel")
-    del state
-    reshard = run_reshard(mgr, model, restored, batches[ckpt_at], resumed[0], dev)
+    reshard = run_reshard(mgr, model, restored, batches[ckpt_at],
+                          resume["resumed_losses"][0], dev)
     del restored
 
-    tokens = batch * seq
-    median = statistics.median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
-    flop = 6 * n_params * tokens
-    flop_bound_ms = flop / BF16_TENSOR_OPS_PER_S * 1e3
     opt_bytes = 22 * n_params  # reads p, g (bf16), m, v; writes p, m, v
-    opt_bound_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
     return {"config": cfg.name, "params": n_params, "dtype": cfg.dtype,
             "remat": cfg.remat, "layers": cfg.n_layers, "batch": batch, "seq": seq,
-            "steps": steps, "ckpt_at": ckpt_at, "losses": losses, "grad_norms": norms,
-            "resumed_losses": resumed, "resumed_grad_norms": resumed_norms,
-            "resumed_bitwise_equal": resumed == losses[start:],
-            "step_ms": step_ms, "step_ms_median_2_on": median,
-            "tokens_per_s": tokens / (median / 1e3),
-            "model_flop_per_step": flop, "flop_bound_ms": flop_bound_ms,
-            "flop_share": flop_bound_ms / median,
+            "steps": steps, "ckpt_at": ckpt_at, **run, **resume,
+            **step_throughput(cfg, n_params, run["step_ms"], batch, seq, batch * seq),
             "opt_update_ms": opt_ms, "opt_bytes": opt_bytes,
-            "opt_bound_ms": opt_bound_ms, "profiled_step": busy,
+            "opt_bound_ms": opt_bytes / HBM_BYTES_PER_S * 1e3, "profiled_step": busy,
             "max_memory_allocated": peak, "state_bytes": state_bytes,
             # the process's peak resident host memory so far (Linux: KiB)
             "host_max_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
-            "ckpt_servers": len(mgr.store.devs),
-            "save_ms": save["ms"], "save_shards": save["shards"],
-            "restore_ms": restore_ms, "restore_crc_launches": restore_launches,
-            "restore_crc_shapes": restore_shapes,
-            "flash_launches": flash.launches, "reshard": reshard}
+            "ckpt_servers": len(mgr.store.devs), "flash_launches": flash.launches,
+            "reshard": reshard}
 
 
 def one_device_mesh(dev):
@@ -1568,6 +1661,228 @@ def run_dryrun(dev, *, train=None, cell=DRYRUN_CELL, layers: int = TRAIN_LAYERS,
     step_ms = (train or {}).get("step_ms_median_2_on")
     return {"wall_s": wall_s, "cell": cell_rec,
             "train_phase": dryrun_summary(train_rec, step_ms)}
+
+
+#: the train_families phase: each config at its full widths and the least
+#: depth that holds every kind of layer it has (overrides of the config),
+#: with the decoder tokens a row (whisper: its 448 target tokens beside its
+#: 1500 frames; pixtral: 2048 text tokens after its 256 patches)
+TRAIN_FAMILIES = {
+    "granite_moe_3b": dict(overrides={"n_layers": 2}, seq=2048),   # of 32
+    "gemma3_12b": dict(overrides={"n_layers": 6}, seq=2048),       # one 5:1 unit of 48
+    "pixtral_12b": dict(overrides={"n_layers": 2}, seq=2048),      # of 40
+    "rwkv6_1p6b": dict(overrides={"n_layers": 2}, seq=2048),       # of 24
+    "zamba2_1p2b": dict(overrides={"n_layers": 8}, seq=2048),      # a group of 6 + tail 2, of 38
+    "whisper_small": dict(overrides={}, seq=448)}                  # whole, 12 + 12
+#: rows a step, steps a config, and the config that also checkpoints after
+#: ``TRAIN_FAMILY_CKPT_AT`` steps and resumes: its train state (2.4 GB) is
+#: the only one small enough to save within the phase (``nvmsim`` writes
+#: ~10 s a GB)
+TRAIN_FAMILY_BATCH = 2
+TRAIN_FAMILY_STEPS = 4
+TRAIN_FAMILY_CKPT = "whisper_small"
+TRAIN_FAMILY_CKPT_AT = 2
+
+
+def train_model_flop(cfg, n_params: int, batch: int, seq: int) -> int:
+    """6·N·T of one train step: T the positions a row runs (a vlm's patches
+    and text), N the parameters they pass through — a MoE config's active
+    ones (``n_experts_active`` of ``n_experts`` a layer), an encdec's
+    encoder over its frames and the rest over the decoder's tokens."""
+    if cfg.family == "encdec":
+        nrm = cfg.d_model if cfg.norm != "nonparam_ln" else 0
+        mlp = (3 if cfg.mlp_kind == "swiglu" else 2) * cfg.d_model * cfg.d_ff
+        enc = cfg.encoder_layers * (2 * nrm + 2 * cfg.d_model * cfg.q_dim
+                                    + 2 * cfg.d_model * cfg.kv_dim + mlp) + nrm
+        return 6 * batch * (enc * cfg.encoder_seq + (n_params - enc) * seq)
+    if cfg.n_experts:
+        mats = 3 if cfg.mlp_kind == "swiglu" else 2
+        n_params -= (cfg.n_layers * (cfg.n_experts - cfg.n_experts_active)
+                     * mats * cfg.d_model * cfg.d_ff)
+    return 6 * n_params * batch * (seq + (cfg.n_patches if cfg.family == "vlm" else 0))
+
+
+def run_train_family(dev, cfg, *, batch: int = TRAIN_FAMILY_BATCH, seq: int = 2048,
+                     steps: int = TRAIN_FAMILY_STEPS, ckpt_at=None, lr: float = 3e-4,
+                     seed: int = 0, reduced=None) -> dict:
+    """``steps`` steps of the port's trainer (``launch.train``'s step,
+    schedule and batches; ``train_steps``) at ``cfg``: fails unless every
+    loss and grad norm is finite, the flash kernel launched no time
+    (training takes the plain attention) and the peak device memory stays
+    under ``PEAK_BYTES_LIMIT``.  With ``ckpt_at``, the train state is saved
+    after that step (a manager sized by ``launch.train.checkpoint_manager_for``)
+    and a fresh trainer resumes from it (``resume_train``); the restore's
+    widest batch is then timed against zlib and its bound, beside the main
+    path.  One more step is profiled, outside the compared runs."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    from repro_torch.models import get_model
+    from repro_torch.train.step import make_train_state, make_train_state_abstract
+    from repro_torch.tree import flatten_with_path
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    model = get_model(cfg, dev)
+    step_fn = T.trainer_step(model, lr, steps)
+    batches = [T.batch_at(cfg, seq, batch, s, dev) for s in range(steps)]
+    n_params = sum(t.numel() for _p, t in flatten_with_path(model.init_abstract()))
+    flash = ops.COUNTS["flash_attention"]
+    flash0 = flash.launches
+    mgr = (T.checkpoint_manager_for(T.nbytes(make_train_state_abstract(model)), saves=1,
+                                    device=dev) if ckpt_at else None)
+    state, run = train_steps(step_fn, make_train_state(model, seed), batches, dev, mgr=mgr,
+                             ckpt_at=ckpt_at, what=cfg.name)
+    busy = busy_share(lambda: step_fn(state, batches[-1]), dev, top=8)
+    del state
+    resume = None
+    if ckpt_at:
+        _model, restored, resume = resume_train(cfg, mgr, batches, ckpt_at, run["losses"],
+                                                lr=lr, dev=dev, what=cfg.name)
+        del restored
+        widest = resume["restore_crc_widest"]
+        resume.update(ckpt_at=ckpt_at, save_ms=run.pop("save_ms"),
+                      save_shards=run.pop("save_shards"), ckpt_servers=len(mgr.store.devs),
+                      # beside the main path: the restore's widest batch alone
+                      restore_crc_case=(uncounted(lambda: crc_case(*widest, seed=5, dev=dev,
+                                                                   plain=False))
+                                        if cuda and widest else None))
+    flash_launches = flash.launches - flash0
+    check(flash_launches == 0, f"{cfg.name}: training launched the flash kernel "
+          f"{flash_launches}x")
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    check(peak is None or peak < PEAK_BYTES_LIMIT,
+          f"{cfg.name}: peak device memory {peak} B, not under {PEAK_BYTES_LIMIT}")
+    positions = seq + (cfg.n_patches if cfg.family == "vlm" else 0)
+    tokens = batch * (positions + (cfg.encoder_seq if cfg.family == "encdec" else 0))
+    return {"config": cfg.name, "family": cfg.family, "attn_pattern": cfg.attn_pattern,
+            "params": n_params, "dtype": cfg.dtype, "remat": cfg.remat,
+            "layers": cfg.n_layers, "reduced": reduced or {}, "batch": batch, "seq": seq,
+            "positions_per_row": positions, "frames_per_row": cfg.encoder_seq or None,
+            "steps": steps, "losses": run["losses"], "grad_norms": run["grad_norms"],
+            "step_ms": run["step_ms"], "tokens_per_step": tokens,
+            **step_throughput(cfg, n_params, run["step_ms"], batch, seq, tokens),
+            "profiled_step": busy, "max_memory_allocated": peak,
+            "flash_launches": flash_launches, "resume": resume}
+
+
+def run_train_families(dev, *, configs=None, steps: int = TRAIN_FAMILY_STEPS,
+                       batch: int = TRAIN_FAMILY_BATCH, ckpt=TRAIN_FAMILY_CKPT,
+                       ckpt_at: int = TRAIN_FAMILY_CKPT_AT) -> dict:
+    """``run_train_family`` for each of ``configs`` ({name: (config, seq)};
+    default: ``TRAIN_FAMILIES`` at their full widths and cut depths), one
+    after another, the card emptied between them; ``ckpt`` also saves and
+    resumes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    if configs is None:
+        configs = {}
+        for name, spec in TRAIN_FAMILIES.items():
+            full = get_config(name)
+            cfg = dataclasses.replace(full, **spec["overrides"])
+            configs[name] = (cfg, spec["seq"])
+    ops.reset_counts()  # the main path starts here
+    out = {}
+    for name, (cfg, seq) in configs.items():
+        full = get_config(name)
+        reduced = {k: [getattr(cfg, k), getattr(full, k)] for k in ("n_layers",)
+                   if getattr(cfg, k) != getattr(full, k)}
+        t0 = time.perf_counter()
+        out[name] = run_train_family(dev, cfg, batch=batch, seq=seq, steps=steps,
+                                     ckpt_at=ckpt_at if name == ckpt else None,
+                                     reduced=reduced)
+        out[name]["wall_s"] = time.perf_counter() - t0
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+#: the ported examples the examples phase runs, at their own defaults (on
+#: the card: ``--device`` defaults to cuda)
+EXAMPLES = ("quickstart_torch", "elastic_scale_torch", "serve_kv_torch",
+            "failure_recovery_demo_torch", "train_lm_torch")
+#: ... those whose store reads must launch the CRC kernel on the card
+#: (train_lm only writes its checkpoints)
+EXAMPLES_READING = {"quickstart_torch", "elastic_scale_torch", "serve_kv_torch",
+                    "failure_recovery_demo_torch"}
+#: an example run by path as ``__main__``, then the kernels its wrappers
+#: launched, on a last line after ``EXAMPLE_COUNTS``
+EXAMPLE_COUNTS = "EXAMPLE_KERNEL_COUNTS "
+EXAMPLE_RUNNER = (
+    "import json, runpy, sys\n"
+    "from repro_torch.kernels import ops\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_path(sys.argv[0], run_name='__main__')\n"
+    f"print({EXAMPLE_COUNTS!r} + json.dumps({{n: [c.launches, "
+    "[[list(k), v] for k, v in c.shapes.items()]] for n, c in ops.COUNTS.items()}), "
+    "flush=True)\n")
+
+
+def example_commands(names=EXAMPLES, args=()) -> dict:
+    """{example: argv} of the examples phase: each example through
+    ``EXAMPLE_RUNNER``, with ``args`` after its path."""
+    return {name: [sys.executable, "-c", EXAMPLE_RUNNER, f"examples/{name}.py", *args]
+            for name in names}
+
+
+def run_examples(dev, *, names=EXAMPLES, args=(), timeout: float = 900) -> dict:
+    """Each ported example in a subprocess of its own, all started together
+    (``example_commands``); fails unless each exits 0 and, on the card, each
+    of ``EXAMPLES_READING`` launched the CRC kernel and none the flash
+    kernel.  Prints each one's wall time (side by side with the others),
+    its kernels' launches, the tail of its output, and train_lm's first-10
+    and last-10 loss averages."""
+    import os
+    import tempfile
+    from repro_torch.kernels import ops
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src"), os.environ.get("PYTHONPATH", "")]))
+    ops.reset_counts()  # this process launches nothing in the phase
+    logs = Path(tempfile.mkdtemp(prefix="examples_"))
+    procs, start, end = {}, {}, {}
+    try:
+        for name, cmd in example_commands(names, args).items():
+            with open(logs / f"{name}.out", "w") as so, open(logs / f"{name}.err", "w") as se:
+                start[name] = time.perf_counter()
+                procs[name] = subprocess.Popen(cmd, cwd=root, env=env, stdout=so, stderr=se)
+        while len(end) < len(procs):
+            for name, p in procs.items():
+                if name not in end and p.poll() is not None:
+                    end[name] = time.perf_counter()
+            check(time.perf_counter() - min(start.values()) < timeout,
+                  f"examples still running after {timeout} s: {sorted(set(procs) - set(end))}")
+            time.sleep(0.1)
+    finally:
+        for p in procs.values():  # a failed phase leaves no process behind
+            p.kill()
+            p.wait()
+    out = {"args": list(args), "side_by_side": True}
+    for name, p in procs.items():
+        stdout = (logs / f"{name}.out").read_text()
+        stderr = (logs / f"{name}.err").read_text()
+        check(p.returncode == 0, f"example {name} exited {p.returncode}: "
+              f"{stdout[-2000:]} {stderr[-3000:]}")
+        lines = stdout.splitlines()
+        counts = json.loads(lines[-1].removeprefix(EXAMPLE_COUNTS))
+        kernels = {k: {"launches": n, "shapes": {str(tuple(s)): v for s, v in shapes}}
+                   for k, (n, shapes) in counts.items()}
+        if dev.type == "cuda":
+            check(kernels["flash_attention"]["launches"] == 0,
+                  f"example {name} launched the flash kernel")
+            check(name not in EXAMPLES_READING or kernels["crc32_batch"]["launches"] > 0,
+                  f"example {name} launched no CRC kernel")
+        row = {"exit": 0, "wall_s": end[name] - start[name], "kernels": kernels,
+               "tail": lines[-6:-1]}
+        loss = [ln for ln in lines if ln.startswith("loss: first-10 avg")]
+        if loss:
+            first, last = (float(w) for w in loss[0].split() if w.replace(".", "").isdigit())
+            row.update(first10_loss=first, last10_loss=last)
+        out[name] = row
+    return out
 
 
 # ------------------------------------------------------- the DES phases
@@ -1998,14 +2313,17 @@ def des_crc_keys(shapes: dict) -> list:
     return keys
 
 
-def crc_entry(dev, launches: int, shapes: dict, also=(), also_shapes=None) -> dict:
+def crc_entry(dev, launches: int, shapes: dict, also=(), also_shapes=None,
+              wide=()) -> dict:
     """The CRC kernel at the main path's batch with the most rows (a KV
     restore's per-shard batch), beside its plain version and its bound;
     ``also`` lists other batches of the main paths (the DES phases') reported
     the same way, with their launches in ``also_shapes`` and a verify call's
     host round trip beside zlib.  Batches of rows wider than
     ``PLAIN_CRC_WORDS`` are left out by the caller: the plain version's
-    per-byte loop would take minutes on them."""
+    per-byte loop would take minutes on them; ``wide`` lists such batches
+    of the main paths, reported against zlib alone (their launches in
+    ``also_shapes`` too)."""
     n, w = max(shapes, key=lambda s: (s[0], s[1]))
     case = crc_case(n, w, seed=7, dev=dev)
     more = []
@@ -2015,6 +2333,12 @@ def crc_entry(dev, launches: int, shapes: dict, also=(), also_shapes=None) -> di
                      "max_abs_err": 0, "ms": c["ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None,
                      **verify_round_trip(rows, width, dev)})
+    for i, (rows, width) in enumerate(wide):
+        c = crc_case(rows, width, seed=20 + i, dev=dev, plain=False)
+        more.append({"shape": [rows, width], "launches": (also_shapes or {}).get((rows, width), 0),
+                     "max_abs_err": 0, "exact_against": "zlib", "ms": c["ms"], "plain_ms": None,
+                     "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None,
+                     "zlib_ms": c["zlib_ms"]})
     return {"name": "crc32_batch", "route": "cuda", "also": more,
             "source": "src/repro_torch/kernels/csrc/crc32.cu",
             "replaces": "src/repro/kernels/crc32.py:61",
@@ -2029,7 +2353,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="device,crc32,flash_attention,kv_pages,"
                     "checkpoint,ycsb,serve_at_load,serve,serve_gemma3,serve_granite_moe,"
                     "serve_gemma3_12b,serve_rwkv6,serve_zamba2,serve_whisper,"
-                    "train,dryrun,kernels")
+                    "serve_pixtral,train_families,examples,train,dryrun,kernels")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     import torch
@@ -2064,19 +2388,23 @@ def main(argv=None) -> int:
             ("serve_granite_moe", run_serve_granite_moe),
             ("serve_gemma3_12b", run_serve_gemma3_12b), ("serve_rwkv6", run_serve_rwkv6),
             ("serve_zamba2", run_serve_zamba2), ("serve_whisper", run_serve_whisper),
-            ("train", run_train)]
+            ("serve_pixtral", run_serve_pixtral), ("train", run_train),
+            ("train_families", run_train_families), ("examples", run_examples)]
     # the card against the CPU on small f32 configs, before the phase
     model_check = lambda label: ("model_check", label, run_model_check, MODEL_CHECKS[label])
     train_check = lambda label: ("train_check", label, run_train_check, TRAIN_CHECKS[label])
     checks = {"ycsb": [("des_check", "card_vs_cpu", run_des_check, {})],
               "serve": [model_check("olmo_1b")],
-              "serve_gemma3": [model_check("local_global"), model_check("pixtral")],
+              "serve_gemma3": [model_check("local_global")],
               "serve_granite_moe": [model_check("granite_moe"), model_check("mixtral")],
               "serve_gemma3_12b": [model_check("gemma3_12b")],
               "serve_rwkv6": [model_check("rwkv6")],
               "serve_zamba2": [model_check("zamba2")],
               "serve_whisper": [model_check("whisper")],
-              "train": [train_check(label) for label in TRAIN_CHECKS]}
+              "serve_pixtral": [model_check("pixtral")],
+              "train": [train_check(label) for label in TRAIN_CHECKS
+                        if label not in FAMILY_TRAIN_CHECKS],
+              "train_families": [train_check(label) for label in FAMILY_TRAIN_CHECKS]}
     for name, run in runs:
         if name not in phases:
             continue
@@ -2088,6 +2416,10 @@ def main(argv=None) -> int:
         res = run(dev)
         emit(name, card=info["nvidia_smi"], phase_s=time.perf_counter() - t0, **res)
         results[name] = res
+        if name == "examples":  # the examples' launches, in their own processes
+            for row in (r for r in res.values() if isinstance(r, dict)):
+                for kname, k in row["kernels"].items():
+                    launches[kname] += k["launches"]
         for kname, count in ops.COUNTS.items():
             launches[kname] += count.launches
             for k, v in count.shapes.items():
@@ -2104,13 +2436,19 @@ def main(argv=None) -> int:
         entries = []
         crc_shapes = {k: v for k, v in shapes["crc32_batch"].items()
                       if k[1] <= PLAIN_CRC_WORDS}
+        wide = [max((k for k in shapes["crc32_batch"] if k[1] == w), key=lambda k: k[0])
+                for w in WIDE_CRC_WIDTHS if any(k[1] == w for k in shapes["crc32_batch"])]
         if crc_shapes:
             entries.append(crc_entry(dev, launches["crc32_batch"], crc_shapes,
-                                     also=des_crc_keys(des_shapes), also_shapes=des_shapes))
+                                     also=des_crc_keys(des_shapes),
+                                     also_shapes={**des_shapes, **{
+                                         k: shapes["crc32_batch"][k] for k in wide}},
+                                     wide=wide))
         if shapes["flash_attention"]:
             fs = shapes["flash_attention"]
-            also = [k for table in (GEMMA3_12B_PREFILL_FLASH, ZAMBA2_PREFILL_FLASH,
-                                    WHISPER_PREFILL_FLASH)
+            also = [k for table in (GRANITE_PREFILL_FLASH, GEMMA3_12B_PREFILL_FLASH,
+                                    ZAMBA2_PREFILL_FLASH, WHISPER_PREFILL_FLASH,
+                                    PIXTRAL_PREFILL_FLASH)
                     for k in table if k in fs and k != max(fs, key=fs.get)]
             entries.append(flash_entry(dev, launches["flash_attention"], fs, also=also))
         print(json.dumps({"kernels": entries}), flush=True)

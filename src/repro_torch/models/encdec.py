@@ -28,7 +28,7 @@ import torch
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import attention as A
 from repro_torch.models.layers import basic as B
-from repro_torch.sharding.rules import constrain_batch
+from repro_torch.sharding.rules import constrain_batch, splittable_grad
 from repro_torch.tree import index_tree, stack_trees
 
 
@@ -57,7 +57,8 @@ def _enc_layer(cfg, lp, h, flash: bool):
     z = B.apply_norm(lp["ln1"], h, cfg.norm)
     q, k, v = A.qkv(lp["attn"], z, cfg)
     o = T.self_attention(cfg, q, k, v, flash=flash, causal=False)
-    h = h + o.reshape(h.shape[0], h.shape[1], cfg.q_dim) @ lp["attn"]["wo"]
+    o = splittable_grad(o.reshape(h.shape[0], h.shape[1], cfg.q_dim), -1, cfg.n_heads)
+    h = h + o @ lp["attn"]["wo"]
     z = B.apply_norm(lp["ln2"], h, cfg.norm)
     return h + B.apply_mlp(lp["mlp"], z, cfg)
 
@@ -95,7 +96,7 @@ def _dec_layer(cfg, lp, x, enc_out, *, self_kv=None, cross_kv=None, pos=None,
                                     k, v, pos)
         o = A.decode_attention(q, kc, vc, kp, pos)
         new_self = {"k": kc, "v": vc, "kv_pos": kp}
-    x = x + o.reshape(Bsz, S, cfg.q_dim) @ lp["self_attn"]["wo"]
+    x = x + splittable_grad(o.reshape(Bsz, S, cfg.q_dim), -1, cfg.n_heads) @ lp["self_attn"]["wo"]
 
     z = B.apply_norm(lp["ln_x"], x, cfg.norm)
     if cross_kv is None:
@@ -104,7 +105,7 @@ def _dec_layer(cfg, lp, x, enc_out, *, self_kv=None, cross_kv=None, pos=None,
         q = (z @ lp["cross_attn"]["wq"]).reshape(Bsz, S, cfg.n_heads, cfg.head_dim)
         ck, cv = cross_kv["k"], cross_kv["v"]
     o = A.full_attention(q, ck, cv, causal=False)
-    x = x + o.reshape(Bsz, S, cfg.q_dim) @ lp["cross_attn"]["wo"]
+    x = x + splittable_grad(o.reshape(Bsz, S, cfg.q_dim), -1, cfg.n_heads) @ lp["cross_attn"]["wo"]
 
     z = B.apply_norm(lp["ln2"], x, cfg.norm)
     x = x + B.apply_mlp(lp["mlp"], z, cfg)

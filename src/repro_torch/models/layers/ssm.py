@@ -12,9 +12,6 @@ Recurrence (a scalar A per head, one group):
 
 Parity with the reference, kept on purpose:
   - the chunk is ``ssm_chunk`` halved until it divides S;
-  - ``_segsum_decay`` takes ``exp`` of every (i, j) difference and masks
-    afterwards, so the backward pass meets the infinities the reference's
-    meets (a positive upper triangle), and no others;
   - ``softplus`` is ``jax.nn.softplus``: ``logaddexp(x, 0)``, computed by
     ``torch.logaddexp``, whose formula (max + log1p(exp(-|x|))) is JAX's;
     ``torch.nn.functional.softplus`` turns into the identity above 20;
@@ -73,12 +70,19 @@ def _causal_conv(xBC, conv_w, conv_state=None):
 
 def _segsum_decay(dA):
     """dA: (B,c,nh) per-step log-decay -> (L (B,i,j,nh) = exp(Σ_{t=j+1..i}
-    dA_t) on and below the diagonal, 0 above; the cumulative sum (B,c,nh))."""
+    dA_t) on and below the diagonal, 0 above; the cumulative sum (B,c,nh)).
+
+    The one deliberate divergence from the reference: the upper triangle
+    is masked before the ``exp``, not after.  Its differences are positive
+    and, at a full config's 128-step chunk, overflow float32, so the
+    reference's backward takes 0 · inf there and every gradient turns NaN
+    (zamba2_1p2b cannot train); here that gradient is 0 · 0.  L and every
+    gradient the reference computes finite are the same bit for bit."""
     cum = torch.cumsum(dA, dim=1)
     diff = cum[:, :, None, :] - cum[:, None, :, :]
     c = dA.shape[1]
     tri = torch.ones((c, c), dtype=torch.bool, device=dA.device).tril()
-    return torch.where(tri[None, :, :, None], torch.exp(diff), 0.0), cum
+    return torch.exp(torch.where(tri[None, :, :, None], diff, -torch.inf)), cum
 
 
 def _ssd_chunk(h, xj, Bj, Cj, dAj, dtj):

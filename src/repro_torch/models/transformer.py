@@ -60,7 +60,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import attention as A
 from repro_torch.models.layers import basic as B
 from repro_torch.models.layers import moe as M
-from repro_torch.sharding.rules import constrain_batch
+from repro_torch.sharding.rules import constrain_batch, splittable_grad
 from repro_torch.tree import index_tree, stack_trees
 
 CACHE_PAD = 128  # decode caches get S + CACHE_PAD capacity
@@ -98,8 +98,9 @@ def _mix(cfg, p, x, attn_out, *, aux: bool = True):
     residual is pinned (``constrain_batch``) before the norm: DTensor would
     otherwise carry the row-parallel projection's partial sums through the
     norm's scaling into the MLP, which then runs whole on every 'model'
-    device; GSPMD reduces them here by itself."""
-    x = constrain_batch(x + attn_out @ p["attn"]["wo"])
+    device; GSPMD reduces them here by itself.  ``attn_out``'s gradient is
+    gathered where its heads split unevenly (``splittable_grad``)."""
+    x = constrain_batch(x + splittable_grad(attn_out, -1, cfg.n_heads) @ p["attn"]["wo"])
     h = B.apply_norm(p["ln2"], x, cfg.norm)
     if "moe" not in p:
         return x + B.apply_mlp(p["mlp"], h, cfg), (_zero(x) if aux else None)

@@ -230,6 +230,30 @@ def splittable(x, dim: int, n: int):
     return x if n % ways == 0 else replicate_dim(x, dim)
 
 
+class _SplittableGrad(torch.autograd.Function):
+    """The identity, whose gradient is ``splittable`` on its way back."""
+
+    @staticmethod
+    def forward(ctx, x, dim, n):
+        ctx.dim, ctx.n = dim, n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return splittable(grad, ctx.dim, ctx.n), None, None
+
+
+def splittable_grad(x, dim: int, n: int):
+    """``x``, a merge of n heads along ``dim`` (e.g. an attention output
+    before its row-parallel projection), whose gradient is gathered along
+    ``dim`` when the mesh dims that shard it do not divide n: the backward
+    of the merge splits that gradient into heads, which DTensor refuses
+    for an uneven split.  The backward counterpart of ``splittable``; a
+    plain tensor passes unchanged."""
+    from torch.distributed.tensor import DTensor
+    return _SplittableGrad.apply(x, dim, n) if isinstance(x, DTensor) else x
+
+
 class _ContiguousGrad(torch.autograd.Function):
     """The identity, whose gradient is made contiguous on its way back:
     DTensor views a gradient's local shard (a reshape's backward) without

@@ -699,3 +699,221 @@ def test_dryrun_phase_on_cpu(tmp_path):
     assert phase["chips"] == 1 and phase["layers"] == 1 and phase["collective_s"] == 0
     assert phase["measured_over_roofline"] == pytest.approx(100.0 / phase["roofline_ms"])
     assert phase["dominant"] in ("compute", "memory")
+
+
+# ------------------- serve_pixtral, train_families and the examples phase
+def tiny_vlm():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("pixtral_12b").scaled_down(), d_model=64,
+                               n_heads=2, n_kv_heads=1, head_dim=32, d_ff=64, vocab_size=64)
+
+
+def test_serve_pixtral_phase_on_cpu():
+    """The serve_pixtral phase on a narrowed vlm: its 8 patches go before
+    the 16 tokens, the tokens are equal through a preemption, and the
+    parameters number the family's exact count (mistral_nemo_12b's is
+    checked at the full config only)."""
+    out = chip_smoke.run_serve_pixtral(torch.device("cpu"), cfg=tiny_vlm(), prompt_len=16,
+                                       tokens=6, snapshot_every=2, crash_at=3)
+    assert out["tokens_equal"] and out["prefills"] == 2 and out["batch"] == 1
+    assert out["params"] == out["exact_param_count"]
+    assert out["mistral_nemo_12b_params"] is None and out["n_patches"] == 8
+    # ['full']['k'] is (4 layers, 1, 8 + 16 + 128, 1, 32) bf16
+    assert out["largest_cache_leaf"] == "['full']['k']"
+    assert out["largest_cache_leaf_bytes"] == 4 * (8 + 16 + 128) * 32 * 2
+    assert out["flash_attention"]["launches"] == 0 and out["max_memory_allocated"] is None
+
+
+def test_pixtral_prefill_flash_key_and_bound():
+    """A serve_pixtral prefill runs flash on all 40 layers at (1 x 32 heads,
+    256 + 1024, 128): 1280 positions, 20 of the bf16 kernel's 64-key tiles;
+    the bound of one call is its operations at 989 TFLOP/s."""
+    from repro_torch.configs import get_config
+    c = get_config("pixtral_12b")
+    S = c.n_patches + 1024
+    assert S == 1280 and S % 64 == 0
+    assert chip_smoke.PIXTRAL_PREFILL_FLASH == {(c.n_heads, S, c.head_dim, "bfloat16"):
+                                                c.n_layers}
+    assert ((32, 1280, 128), "bfloat16", True) in chip_smoke.FLASH_SHAPES
+    ms, by = chip_smoke.flash_bound_ms(32, 1280, 128, "bfloat16", True)
+    assert by == "operations"
+    assert ms == pytest.approx(4 * 32 * 1280**2 * 128 / 2 / 989e12 * 1e3)
+    assert chip_smoke.PIXTRAL_RESTORE_CRC in chip_smoke.phase_crc32.__kwdefaults__["serve"]
+
+
+def test_pixtral_restore_crc_width_follows_its_cache_tree():
+    """The serve_pixtral restore's widest row: the ['full']['k'] leaf of a
+    1280-position cache (patches and tokens); as many rows as leaves."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import family_module
+    from repro_torch.tree import flatten_with_path
+    cfg = get_config("pixtral_12b")
+    leaves = flatten_with_path(family_module(cfg).init_cache(cfg, 1, 1280, device="meta"))
+    widest = max(restore_row_words(tuple(t.shape), str(t.dtype).removeprefix("torch."))
+                 for _p, t in leaves)
+    assert (len(leaves), widest) == chip_smoke.PIXTRAL_RESTORE_CRC
+
+
+def test_full_pixtral_decoder_is_mistral_nemo_12b():
+    """pixtral_12b's decoder has mistral_nemo_12b's widths, so one serve_pixtral
+    phase runs every shape of mistral_nemo_12b's text path."""
+    from repro_torch.configs import get_config
+    pix, nemo = get_config("pixtral_12b"), get_config("mistral_nemo_12b")
+    same = ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
+            "vocab_size", "rope_theta", "tie_embeddings", "attn_pattern", "dtype")
+    assert {k: getattr(pix, k) for k in same} == {k: getattr(nemo, k) for k in same}
+    assert chip_smoke.exact_param_count(pix) == chip_smoke.exact_param_count(nemo) \
+        == 11_576_693_760
+
+
+def tiny_family_configs():
+    """Every train_families config scaled down and narrowed (zamba2 with a
+    tail), 16 decoder tokens a row."""
+    from repro_torch.configs import get_config
+    extra = {"zamba2_1p2b": dict(n_layers=5, shared_attn_every=2, ssm_head_dim=16, ssm_state=8),
+             "whisper_small": dict(d_model=32, head_dim=16)}
+    out = {}
+    for name in chip_smoke.TRAIN_FAMILIES:
+        widths = dict(TINY_WIDTHS, **extra.get(name, {}))
+        out[name] = (dataclasses.replace(get_config(name).scaled_down(), **widths), 16)
+    return out
+
+
+def test_train_families_phase_on_cpu():
+    """The phase on every family scaled down: 3 steps each, finite losses,
+    no flash launch; whisper saves after step 1 and a fresh trainer's
+    resumed losses are the uninterrupted run's; the cut depths listed."""
+    out = chip_smoke.run_train_families(torch.device("cpu"), configs=tiny_family_configs(),
+                                        steps=3, ckpt_at=1)
+    assert list(out) == list(chip_smoke.TRAIN_FAMILIES)
+    assert [r["family"] for r in out.values()] == ["moe", "dense", "vlm", "ssm", "hybrid",
+                                                   "encdec"]
+    for name, r in out.items():
+        assert len(r["losses"]) == 3 and r["flash_launches"] == 0, name
+        assert r["max_memory_allocated"] is None and r["profiled_step"]["busy_share"] is None
+        assert r["reduced"]["n_layers"][1] == r["layers"] or r["reduced"]["n_layers"][0] == \
+            r["layers"]
+        assert (r["resume"] is not None) == (name == chip_smoke.TRAIN_FAMILY_CKPT)
+    w = out["whisper_small"]
+    assert w["tokens_per_step"] == 2 * (16 + 32)  # 32 stub frames a row
+    res = w["resume"]
+    assert res["resumed_bitwise_equal"] and res["resumed_losses"] == w["losses"][1:]
+    assert res["save_shards"] > 0 and res["restore_crc_launches"] == 0
+    assert res["restore_crc_case"] is None  # no device times off the card
+    assert out["pixtral_12b"]["positions_per_row"] == 8 + 16
+
+
+def test_train_families_hold_every_kind_of_layer():
+    """The cut depths at full width: granite all MoE; gemma3_12b one 5:1
+    local:global unit and no tail; zamba2 one group of 6 Mamba2 layers with
+    the shared block and the 2-layer tail; whisper whole; 4 steps of 2 rows;
+    only whisper's 2.4 GB state checkpoints."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import layer_plan
+    cut = {n: dataclasses.replace(get_config(n), **s["overrides"])
+           for n, s in chip_smoke.TRAIN_FAMILIES.items()}
+    assert layer_plan(cut["gemma3_12b"]).count("full") == 1
+    assert layer_plan(cut["gemma3_12b"]).count("window") == 5
+    z = cut["zamba2_1p2b"]
+    assert (z.n_layers // z.shared_attn_every, z.n_layers % z.shared_attn_every) == (1, 2)
+    assert cut["whisper_small"] == get_config("whisper_small")
+    assert cut["granite_moe_3b"].n_experts == 40 and cut["granite_moe_3b"].n_layers == 2
+    assert {n: s["seq"] for n, s in chip_smoke.TRAIN_FAMILIES.items()} == {
+        "granite_moe_3b": 2048, "gemma3_12b": 2048, "pixtral_12b": 2048,
+        "rwkv6_1p6b": 2048, "zamba2_1p2b": 2048, "whisper_small": 448}
+    assert (chip_smoke.TRAIN_FAMILY_STEPS, chip_smoke.TRAIN_FAMILY_BATCH) == (4, 2)
+    state = 10 * chip_smoke.exact_param_count(cut[chip_smoke.TRAIN_FAMILY_CKPT])
+    assert state == pytest.approx(2.41e9, rel=0.01)  # bf16 parameters, f32 moments
+
+
+def test_train_model_flop_counts_the_positions_each_weight_sees():
+    from repro_torch.configs import get_config
+    g = dataclasses.replace(get_config("granite_moe_3b"), n_layers=2)
+    n = chip_smoke.exact_param_count(g)
+    inactive = 2 * (40 - 8) * 3 * 1536 * 512
+    assert chip_smoke.train_model_flop(g, n, 2, 2048) == 6 * (n - inactive) * 2 * 2048
+    p = dataclasses.replace(get_config("pixtral_12b"), n_layers=2)
+    n = chip_smoke.exact_param_count(p)
+    assert chip_smoke.train_model_flop(p, n, 2, 2048) == 6 * n * 2 * (256 + 2048)
+    w = get_config("whisper_small")
+    n = chip_smoke.exact_param_count(w)
+    enc = 12 * (2 * 768 + 4 * 768 * 768 + 2 * 768 * 3072) + 768
+    assert chip_smoke.train_model_flop(w, n, 2, 448) == 6 * 2 * (enc * 1500 + (n - enc) * 448)
+
+
+@pytest.mark.parametrize("label", ["rwkv6", "zamba2", "whisper"])
+def test_train_check_on_cpu_for_the_new_families(label):
+    """The three new train checks (CPU against CPU here) at short sequences
+    that still cross a chunk: 24 tokens halve rwkv6's and zamba2's chunk of
+    16 to 8."""
+    from repro_torch.models.layers.basic import halved_chunk
+    kwargs = dict(chip_smoke.TRAIN_CHECKS[label], seqs=(24,))
+    out = chip_smoke.run_train_check(torch.device("cpu"), **kwargs)
+    assert out["max_abs_err"] <= 1e-6 and out["family"] == {
+        "rwkv6": "ssm", "zamba2": "hybrid", "whisper": "encdec"}[label]
+    assert halved_chunk(16, 24) == 8
+    # on the card: a sequence past the loss's 512-token chunk too
+    assert max(chip_smoke.TRAIN_CHECKS[label]["seqs"]) == 640
+
+
+def test_family_train_checks_run_before_train_families():
+    import inspect
+    assert set(chip_smoke.FAMILY_TRAIN_CHECKS) == {"rwkv6", "zamba2", "whisper"}
+    assert set(chip_smoke.FAMILY_TRAIN_CHECKS) < set(chip_smoke.TRAIN_CHECKS)
+    src = inspect.getsource(chip_smoke.main)
+    assert '"train_families": [train_check(label) for label in FAMILY_TRAIN_CHECKS]' in src
+    assert '"serve_pixtral": [model_check("pixtral")]' in src
+
+
+def test_new_phases_run_in_order():
+    """serve_pixtral after the other serve phases, train_families after
+    train, then the examples; every new phase is a default one."""
+    import inspect
+    src = inspect.getsource(chip_smoke.main)
+    order = [src.index(f'("{name}", run_') for name in
+             ("serve_whisper", "serve_pixtral", "train", "train_families", "examples")]
+    assert order == sorted(order)
+    defaults = chip_smoke.main.__code__.co_consts
+    phases = next(c for c in defaults if isinstance(c, str) and c.startswith("device,"))
+    assert {"serve_pixtral", "train_families", "examples"} <= set(phases.split(","))
+
+
+def test_examples_phase_commands():
+    """Each of the five ported examples in the order they run, by path,
+    through the runner that prints its kernels' launches after it; at its
+    own defaults unless the phase is given arguments."""
+    cmds = chip_smoke.example_commands()
+    assert list(cmds) == ["quickstart_torch", "elastic_scale_torch", "serve_kv_torch",
+                          "failure_recovery_demo_torch", "train_lm_torch"]
+    for name, argv in cmds.items():
+        assert argv[:2] == [sys.executable, "-c"] and argv[2] == chip_smoke.EXAMPLE_RUNNER
+        assert argv[3:] == [f"examples/{name}.py"] and (ROOT / argv[3]).exists()
+    assert chip_smoke.example_commands(["train_lm_torch"], ("--device", "cpu"))[
+        "train_lm_torch"][3:] == ["examples/train_lm_torch.py", "--device", "cpu"]
+    assert chip_smoke.EXAMPLES_READING == set(chip_smoke.EXAMPLES) - {"train_lm_torch"}
+
+
+def test_examples_phase_on_cpu():
+    out = chip_smoke.run_examples(torch.device("cpu"),
+                                  names=("quickstart_torch", "elastic_scale_torch"),
+                                  args=("--device", "cpu"))
+    assert out["args"] == ["--device", "cpu"]
+    for name in ("quickstart_torch", "elastic_scale_torch"):
+        row = out[name]
+        assert row["exit"] == 0 and row["wall_s"] > 0
+        assert row["kernels"]["crc32_batch"]["launches"] == 0  # the CPU's plain CRC
+        assert row["tail"]
+    assert out["elastic_scale_torch"]["tail"][-1].startswith("all 300 keys intact")
+
+
+def test_kernels_line_reports_the_wide_restore_batches_against_zlib():
+    """Batches past ``PLAIN_CRC_WORDS`` (the pixtral restore's, a
+    checkpoint restore's 4 MiB shards) stand in the CRC entry's ``also``
+    against zlib, with their main-path launches."""
+    assert chip_smoke.WIDE_CRC_WIDTHS == (chip_smoke.PIXTRAL_RESTORE_CRC[1], 1048581)
+    crc = chip_smoke.crc_entry(torch.device("cpu"), 6, {(6, 2): 2}, also_shapes={(2, 300): 4},
+                               wide=[(2, 300)])
+    (wide,) = crc["also"]
+    assert wide["shape"] == [2, 300] and wide["launches"] == 4
+    assert wide["exact_against"] == "zlib" and wide["plain_ms"] is None
+    assert wide["bound_by"] == "bytes" and wide["ms"] is None

@@ -2,7 +2,8 @@
 prefill and decode step on a fake (2, 2, 2) pod × data × model mesh, built
 as ``tests/test_dryrun_small.py`` builds its configs; on a (1, 1) mesh the
 count equals ``FlopCounterMode`` of the plain step exactly, with no
-collective; and the CLI's record for olmo_1b × train_4k on the 16 × 16
+collective; a train step whose 3 heads the mesh's 'model' axis does not
+divide; and the CLI's record for olmo_1b × train_4k on the 16 × 16
 production mesh.  Each fake world lives in a subprocess of its own (the
 cases run side by side), so no process group outlives this file."""
 import json
@@ -76,6 +77,25 @@ ONE = textwrap.dedent("""
                               "records": got["counter"].records}), flush=True)
 """)
 
+#: a train step whose head count the mini mesh's 'model' axis (2) does not
+#: divide: 3 heads (1 KV head; whisper 3), whose merge before the
+#: row-parallel ``wo`` gets back a gradient sharded over 'model'
+UNEVEN = textwrap.dedent("""
+    import dataclasses, json, sys
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import count_cell
+    from repro_torch.launch.mesh import fake_world, make_test_mesh
+    fake_world(8)
+    mesh = make_test_mesh(data=2, model=2, pod=2)
+    for arch in sys.argv[1:]:
+        cfg = dataclasses.replace(get_config(arch).scaled_down(), d_model=48, head_dim=16,
+                                  n_heads=3, n_kv_heads=3 if arch == "whisper_small" else 1)
+        c = count_cell(cfg, ShapeConfig("train", 64, 8, "train"), mesh)["counter"]
+        print(json.dumps({"arch": arch, "flops": c.flops, "bytes": c.bytes}), flush=True)
+""")
+UNEVEN_ARCHS = ("olmo_1b", "whisper_small")
+
 #: families grouped so that each process shares DTensor's sharding caches
 MINI_GROUPS = [("olmo_1b", "gemma3_12b", "mistral_nemo_12b"),
                ("gemma3_27b", "pixtral_12b"), ("mixtral_8x22b", "granite_moe_3b"),
@@ -94,6 +114,7 @@ def runs(tmp_path_factory):
     out_dir = tmp_path_factory.mktemp("dryrun")
     cmds = {f"mini:{','.join(g)}": [sys.executable, "-c", MINI, *g] for g in MINI_GROUPS}
     cmds["one"] = [sys.executable, "-c", ONE, *ONE_ARCHS]
+    cmds["uneven"] = [sys.executable, "-c", UNEVEN, *UNEVEN_ARCHS]
     cmds["cli"] = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "olmo_1b",
                    "--shape", "train_4k", "--mesh", "single", "--out", str(out_dir)]
     procs = {name: subprocess.Popen(cmd, cwd=ROOT, env=_env(), stdout=subprocess.PIPE,
@@ -121,6 +142,16 @@ def test_every_family_step_runs_on_the_mini_mesh(runs, group):
     for r in got:
         assert r["flops"] > 0 and r["bytes"] > 0 and r["argument"] > 0, r
         assert r["collective"] > 0, r  # the mesh moved activations or weights
+
+
+def test_train_step_with_heads_the_model_axis_does_not_divide(runs):
+    """The backward of the heads' merge before ``wo`` gets a gradient
+    sharded over 'model', which the merge's backward must split into 3
+    heads: ``rules.splittable_grad`` gathers it first (without it, olmo_1b's
+    step fails in DTensor's view, as granite_moe_3b x train_4k did)."""
+    got = lines(runs, "uneven")
+    assert [r["arch"] for r in got] == list(UNEVEN_ARCHS)
+    assert all(r["flops"] > 0 and r["bytes"] > 0 for r in got), got
 
 
 def test_one_device_count_equals_flop_counter_mode(runs):

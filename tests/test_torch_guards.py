@@ -49,6 +49,8 @@ CHANGED = {
                           "_redistribute", "constrain_batch_only", "constrain_batch",
                           "replicate_dim", "splittable", "lookup", "local_heads",
                           "_ContiguousGrad.forward", "_ContiguousGrad.backward",
+                          "_SplittableGrad.forward", "_SplittableGrad.backward",
+                          "splittable_grad",
                           "_path_str", "param_specs", "batch_spec",
                           "_dtype_name", "cache_specs"},
     # collectives come as records, not HLO text; the H100's peaks
@@ -134,7 +136,8 @@ def imported_roots(path: Path):
             yield node.module.split(".")[0], node.lineno
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "examples").glob("*_torch.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = [(root, line) for root, line in imported_roots(path)

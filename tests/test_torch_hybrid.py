@@ -1,7 +1,9 @@
 """The port's Mamba2 layer and zamba2 hybrid (``repro_torch.models.layers.
 ssm`` and ``models.hybrid``) against the JAX package's, on the CPU in
 float32 unless a case says bf16: the causal conv with and without a carried
-state, the segment-sum decay, the chunked SSD and the decode recurrence,
+state, the segment-sum decay (and its gradient over a full config's
+128-step chunk, NaN in the reference where the port's is finite), the
+chunked SSD and the decode recurrence,
 softplus; the model's prefill, decode and ``train_loss`` with every
 gradient (3e-5), on the scaled-down config (6 groups of 2, no tail) and on
 one with a tail (5 layers at every 2); decode against prefill; greedy
@@ -67,6 +69,48 @@ def test_segsum_decay_matches_reference():
     close(tL, jL)
     close(tcum, jcum)
     assert float(tL[0, 0, 1, 0]) == 0.0  # masked above the diagonal
+
+
+def _mask_after_exp(dA):
+    """The reference's formula in torch: exp of every difference, masked
+    after."""
+    cum = torch.cumsum(dA, dim=1)
+    diff = cum[:, :, None, :] - cum[:, None, :, :]
+    tri = torch.ones((dA.shape[1],) * 2, dtype=torch.bool).tril()
+    return torch.where(tri[None, :, :, None], torch.exp(diff), 0.0)
+
+
+def _grad(fn, dA: np.ndarray, g: np.ndarray) -> np.ndarray:
+    """d(sum(fn(dA) * g)) / d dA in torch."""
+    t = torch.from_numpy(dA).requires_grad_(True)
+    (fn(t) * torch.from_numpy(g)).sum().backward()
+    return t.grad.numpy()
+
+
+@pytest.mark.parametrize("scale", [0.05, 1.0])
+def test_segsum_decay_gradient_equals_reference_where_it_is_finite(scale):
+    """The port masks the upper triangle before the exp: over a 128-step
+    chunk (a full config's) L and, where the reference's formula keeps it
+    finite, the gradient are that formula's bit for bit in torch, and the
+    JAX package's within 3e-5.  Where the upper triangle's differences pass
+    float32's exp range (decays of ~0.7 a step: softplus(0) · exp(0),
+    zamba2's initial ones), the reference's gradient is NaN and the
+    port's finite."""
+    rng = np.random.default_rng(2)
+    dA = -scale * np.abs(rand(rng, 1, 128, 2)) - (0.7 if scale == 1.0 else 0.0)
+    g = rand(rng, 1, 128, 128, 2)
+    port = lambda t: TS._segsum_decay(t)[0]
+    tL = port(torch.from_numpy(dA))
+    assert torch.equal(tL, _mask_after_exp(torch.from_numpy(dA)))
+    close(tL, JS._segsum_decay(jnp.asarray(dA))[0])
+    jg = np.asarray(jax.grad(lambda a: jnp.sum(JS._segsum_decay(a)[0] * g))(jnp.asarray(dA)))
+    tg, ref_formula = _grad(port, dA, g), _grad(_mask_after_exp, dA, g)
+    assert np.isfinite(tg).all()
+    if scale == 1.0:
+        assert np.isnan(jg).any() and np.isnan(ref_formula).any()
+    else:
+        assert np.isfinite(jg).all() and np.array_equal(tg, ref_formula)
+        close(torch.from_numpy(tg), jg)
 
 
 def test_softplus_is_jaxs():

@@ -51,6 +51,7 @@ from __future__ import annotations
 import struct
 from typing import Callable, Dict, FrozenSet, List, Optional, Sequence, Tuple
 
+from repro_torch import tracing
 from repro_torch._device import resolve_device
 from repro_torch.core import layout
 from repro_torch.core.hashtable import ENTRY_SIZE, H, STATE_VALID
@@ -347,70 +348,75 @@ class ErdaClient:
         Observationally equivalent to k sequential ``read()`` calls; issues
         exactly the same verbs per DISTINCT key on hits — duplicate keys
         within one batch collapse to a single fetch (the batch reads a
-        snapshot, so every occurrence returns the same value)."""
-        out: List[Optional[bytes]] = [None] * len(keys)
-        first: Dict[int, int] = {}       # key -> index of its first occurrence
-        dups: List[Tuple[int, int]] = []  # (duplicate index, first index)
-        # (index, key, meta handles, cached word or None, spec handle or None)
-        metas: List[Tuple[int, int, List[Handle], Optional[int], Optional[Handle]]] = []
-        objs: List[Tuple[int, int, int, Handle]] = []
-        with self.transport.batch() as b:
-            for i, key in enumerate(keys):
-                self.stats["reads"] += 1
-                if key in first:
-                    dups.append((i, first[key]))
-                    continue
-                first[key] = i
-                if self.is_cleaning(key):
-                    # §4.4 send path (a blocking verb inside the batch acts as
-                    # a fence for this lane — correctness over amortization on
-                    # the rare path)
-                    out[i] = self._send_read(key)
-                    continue
-                cached = self.loc_cache.get(key)
-                spec = None
-                if cached is not None:
-                    _tag, off_spec, _old = layout.unpack_word(cached)
-                    guess = self.size_cache.get(key, self.INITIAL_READ)
-                    spec = self._post_os_read(off_spec, guess)
-                metas.append((i, key, self._post_entry_read(key), cached, spec))
-            b.fence()  # neighborhoods must be in hand to learn object offsets
-            words = [self._scan_neighborhood(
-                b"".join(h.result for h in handles), key)
-                for _i, key, handles, _cached, _spec in metas]
-            # every validated speculative buffer is CRC-verified as one batch
-            hits = [m[4].result for m, word in zip(metas, words)
-                    if m[3] is not None and word == m[3]]
-            hit_ok = iter(layout.verify_records(hits, self.device))
-            for (i, key, handles, cached, spec), word in zip(metas, words):
-                if cached is not None:
-                    if word == cached:
-                        self.stats["spec_hits"] += 1
-                        _tag, off_spec, _old = layout.unpack_word(cached)
-                        rec = self._parse_object(key, off_spec, spec.result,
-                                                 next(hit_ok))
-                        out[i] = self._finish_read(key, word, rec)
+        snapshot, so every occurrence returns the same value).  Span
+        ``erda.multi_read``, counting the keys and the torn-read fallbacks
+        taken inside it."""
+        fallbacks = self.stats["fallbacks"]
+        with tracing.span("erda.multi_read", keys=len(keys)) as sp:
+            out: List[Optional[bytes]] = [None] * len(keys)
+            first: Dict[int, int] = {}       # key -> index of its first occurrence
+            dups: List[Tuple[int, int]] = []  # (duplicate index, first index)
+            # (index, key, meta handles, cached word or None, spec handle or None)
+            metas: List[Tuple[int, int, List[Handle], Optional[int], Optional[Handle]]] = []
+            objs: List[Tuple[int, int, int, Handle]] = []
+            with self.transport.batch() as b:
+                for i, key in enumerate(keys):
+                    self.stats["reads"] += 1
+                    if key in first:
+                        dups.append((i, first[key]))
                         continue
-                    self.stats["spec_misses"] += 1
-                    self.loc_cache.pop(key, None)
-                if word is None or word == 0:
-                    continue
+                    first[key] = i
+                    if self.is_cleaning(key):
+                        # §4.4 send path (a blocking verb inside the batch acts as
+                        # a fence for this lane — correctness over amortization on
+                        # the rare path)
+                        out[i] = self._send_read(key)
+                        continue
+                    cached = self.loc_cache.get(key)
+                    spec = None
+                    if cached is not None:
+                        _tag, off_spec, _old = layout.unpack_word(cached)
+                        guess = self.size_cache.get(key, self.INITIAL_READ)
+                        spec = self._post_os_read(off_spec, guess)
+                    metas.append((i, key, self._post_entry_read(key), cached, spec))
+                b.fence()  # neighborhoods must be in hand to learn object offsets
+                words = [self._scan_neighborhood(
+                    b"".join(h.result for h in handles), key)
+                    for _i, key, handles, _cached, _spec in metas]
+                # every validated speculative buffer is CRC-verified as one batch
+                hits = [m[4].result for m, word in zip(metas, words)
+                        if m[3] is not None and word == m[3]]
+                hit_ok = iter(layout.verify_records(hits, self.device))
+                for (i, key, handles, cached, spec), word in zip(metas, words):
+                    if cached is not None:
+                        if word == cached:
+                            self.stats["spec_hits"] += 1
+                            _tag, off_spec, _old = layout.unpack_word(cached)
+                            rec = self._parse_object(key, off_spec, spec.result,
+                                                     next(hit_ok))
+                            out[i] = self._finish_read(key, word, rec)
+                            continue
+                        self.stats["spec_misses"] += 1
+                        self.loc_cache.pop(key, None)
+                    if word is None or word == 0:
+                        continue
+                    _tag, off_new, _off_old = layout.unpack_word(word)
+                    if off_new == layout.NULL_OFF:
+                        continue
+                    guess = self.size_cache.get(key, self.INITIAL_READ)
+                    objs.append((i, key, word,
+                                 self._post_os_read(off_new, guess)))
+            self.transport.poll(self.qp)  # drain the lane's CQ for both doorbells
+            # every phase-2 object is CRC-verified as one batch
+            obj_ok = layout.verify_records(
+                [h.result for _i, _key, _word, h in objs], self.device)
+            for (i, key, word, h), ok in zip(objs, obj_ok):
                 _tag, off_new, _off_old = layout.unpack_word(word)
-                if off_new == layout.NULL_OFF:
-                    continue
-                guess = self.size_cache.get(key, self.INITIAL_READ)
-                objs.append((i, key, word,
-                             self._post_os_read(off_new, guess)))
-        self.transport.poll(self.qp)  # drain the lane's CQ for both doorbells
-        # every phase-2 object is CRC-verified as one batch
-        obj_ok = layout.verify_records(
-            [h.result for _i, _key, _word, h in objs], self.device)
-        for (i, key, word, h), ok in zip(objs, obj_ok):
-            _tag, off_new, _off_old = layout.unpack_word(word)
-            rec = self._parse_object(key, off_new, h.result, ok)
-            out[i] = self._finish_read(key, word, rec)
-        for i, j in dups:
-            out[i] = out[j]
+                rec = self._parse_object(key, off_new, h.result, ok)
+                out[i] = self._finish_read(key, word, rec)
+            for i, j in dups:
+                out[i] = out[j]
+            sp.add(fallbacks=self.stats["fallbacks"] - fallbacks)
         return out
 
     # ----------------------------------------------------- posted write legs
@@ -500,25 +506,27 @@ class ErdaClient:
         write.  Same verbs as k sequential ``write()`` calls."""
         imms: List[Tuple[int, bytes, bytes, Handle]] = []
         done: List[Tuple[int, int, int, int]] = []
-        with self.transport.batch() as b:
-            for key, value in items:
-                self.stats["writes"] += 1
-                rec = layout.pack_record(key, value)
-                if self.is_cleaning(key):
-                    addr, size, word = self._send_write_cleaning(
-                        key, rec, len(value))
+        with tracing.span("erda.multi_write", keys=len(items)):
+            with self.transport.batch() as b:
+                for key, value in items:
+                    self.stats["writes"] += 1
+                    with tracing.span("erda.pack", bytes=len(value)):
+                        rec = layout.pack_record(key, value)
+                    if self.is_cleaning(key):
+                        addr, size, word = self._send_write_cleaning(
+                            key, rec, len(value))
+                        done.append((key, addr, size, word))
+                        continue
+                    imms.append((key, value, rec,
+                                 self.post_write_req(key, len(value))))
+                b.fence()  # metadata flip completes before its dependent data write
+                for key, _value, rec, h in imms:
+                    addr, size, word = h.result
+                    self.post_data_write(addr, rec)
                     done.append((key, addr, size, word))
-                    continue
-                imms.append((key, value, rec,
-                             self.post_write_req(key, len(value))))
-            b.fence()  # metadata flip completes before its dependent data write
-            for key, _value, rec, h in imms:
-                addr, size, word = h.result
-                self.post_data_write(addr, rec)
-                done.append((key, addr, size, word))
-        self.transport.poll(self.qp)
-        for key, addr, size, word in done:
-            self.finish_write(key, addr, size, word)
+            self.transport.poll(self.qp)
+            for key, addr, size, word in done:
+                self.finish_write(key, addr, size, word)
 
     def delete(self, key: int) -> None:
         self.stats["writes"] += 1

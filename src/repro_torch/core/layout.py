@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import ops
 
 FLAG_DELETE = 0x01
@@ -134,31 +135,41 @@ def verify_records(bufs, device) -> np.ndarray:
     zero-padded to whole words of the widest row.  Appending p zero bytes maps
     CRC values one-to-one, so the row's padded CRC equals
     ``zlib.crc32(b"\\0" * p, stored)`` exactly when the record's own CRC
-    equals the stored one: the verdict is exact, not probabilistic."""
+    equals the stored one: the verdict is exact, not probabilistic.
+
+    Span ``erda.verify`` (counting records, rows and the bytes hashed)
+    around ``verify.pack`` (header checks and row packing on the host),
+    ``verify.crc`` (the copy to the device, the kernel and the copy back)
+    and ``verify.compare``."""
     ok = np.zeros(len(bufs), dtype=bool)
-    rows = []  # (index, record bytes, deleted, stored crc)
-    for i, buf in enumerate(bufs):
-        if len(buf) < HEADER_SIZE:
-            continue
-        flags, crc, key_len, val_len = struct.unpack_from(HEADER_FMT, buf, 0)
-        deleted = bool(flags & FLAG_DELETE)
-        nbytes = HEADER_SIZE + key_len + (0 if deleted else val_len)
-        if key_len == KEY_BYTES and nbytes <= len(buf):
-            rows.append((i, nbytes, deleted, crc))
-    if not rows:
-        return ok
-    width = (max(r[1] for r in rows) + 3) & ~3
-    arr = np.zeros((len(rows), width), dtype=np.uint8)
-    for r, (i, nbytes, _deleted, _stored) in enumerate(rows):
-        arr[r, :nbytes] = np.frombuffer(bufs[i], dtype=np.uint8, count=nbytes)
-    arr[:, 1:5] = 0  # the CRC field is hashed as zero
-    dels = [r for r, row in enumerate(rows) if row[2]]
-    arr[dels, 7:11] = 0
-    words = torch.from_numpy(arr.view("<i4"))
-    crcs = ops.crc32_batch(words.to(device)).cpu().numpy()
-    zeros = memoryview(bytes(width))
-    for r, (i, nbytes, _deleted, stored) in enumerate(rows):
-        ok[i] = int(crcs[r]) == zlib.crc32(zeros[: width - nbytes], stored)
+    with tracing.span("erda.verify", records=len(bufs)) as sp:
+        with tracing.span("verify.pack"):
+            rows = []  # (index, record bytes, deleted, stored crc)
+            for i, buf in enumerate(bufs):
+                if len(buf) < HEADER_SIZE:
+                    continue
+                flags, crc, key_len, val_len = struct.unpack_from(HEADER_FMT, buf, 0)
+                deleted = bool(flags & FLAG_DELETE)
+                nbytes = HEADER_SIZE + key_len + (0 if deleted else val_len)
+                if key_len == KEY_BYTES and nbytes <= len(buf):
+                    rows.append((i, nbytes, deleted, crc))
+            if not rows:
+                return ok
+            width = (max(r[1] for r in rows) + 3) & ~3
+            arr = np.zeros((len(rows), width), dtype=np.uint8)
+            for r, (i, nbytes, _deleted, _stored) in enumerate(rows):
+                arr[r, :nbytes] = np.frombuffer(bufs[i], dtype=np.uint8, count=nbytes)
+            arr[:, 1:5] = 0  # the CRC field is hashed as zero
+            dels = [r for r, row in enumerate(rows) if row[2]]
+            arr[dels, 7:11] = 0
+        sp.add(rows=len(rows), bytes=arr.nbytes)
+        with tracing.span("verify.crc"):
+            words = torch.from_numpy(arr.view("<i4"))
+            crcs = ops.crc32_batch(words.to(device)).cpu().numpy()
+        with tracing.span("verify.compare"):
+            zeros = memoryview(bytes(width))
+            for r, (i, nbytes, _deleted, stored) in enumerate(rows):
+                ok[i] = int(crcs[r]) == zlib.crc32(zeros[: width - nbytes], stored)
     return ok
 
 

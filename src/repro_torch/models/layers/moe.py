@@ -31,6 +31,7 @@ from typing import Dict, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.models.layers.basic import _act, dense_init, dtype_of
 
 
@@ -90,27 +91,39 @@ def route(params: Dict, x: torch.Tensor, cfg) -> Routing:
 
 
 def apply_moe(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d); dropped pairs contribute 0."""
+    """x: (B, S, d) -> (B, S, d); dropped pairs contribute 0.
+
+    Spans ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
+    ``moe.combine``; while the recorder is on, counters ``moe.pairs`` (the
+    routed (token, slot) pairs) and ``moe.dropped`` (those past their
+    expert's capacity), the latter summed on x's device."""
     B_, S, d = x.shape
     E, k = cfg.n_experts, cfg.n_experts_active
-    r = route(params, x, cfg)
+    with tracing.span("moe.route"):
+        r = route(params, x, cfg)
+    if tracing.enabled():
+        tracing.count("moe.pairs", r.keep.numel())
+        tracing.count("moe.dropped", (~r.keep).sum())
     n, C = S // r.g, r.C
-    # each pair's row in the E·C capacity slots of its group; a dropped pair
-    # goes to one extra row, which no expert reads and which stays zero
-    # where combine reads it
-    slot = torch.where(r.keep, r.topi * C + r.pos, E * C).reshape(B_, n, r.g * k, 1)
-    slot = slot.expand(-1, -1, -1, d)
-    tokens = x.reshape(B_, n, r.g, 1, d).expand(-1, -1, -1, k, -1).reshape(B_, n, r.g * k, d)
-    xe = x.new_zeros((B_, n, E * C + 1, d)).scatter(2, slot, tokens)[:, :, :E * C]
-    xe = xe.reshape(B_, n, E, C, d).permute(2, 0, 1, 3, 4).reshape(E, B_ * n * C, d)
-    act = _act(cfg)
-    h = act(torch.bmm(xe, params["wg"])) * torch.bmm(xe, params["wi"])
-    ye = torch.bmm(h, params["wo"])                                # (E, B·n·C, d)
-    ye = ye.reshape(E, B_, n, C, d).permute(1, 2, 0, 3, 4).reshape(B_, n, E * C, d)
-    ye = torch.cat([ye, ye.new_zeros((B_, n, 1, d))], dim=2)
-    picked = torch.gather(ye, 2, slot).reshape(B_, n, r.g, k, d)
-    w = r.topv.to(x.dtype).reshape(B_, n, r.g, 1, k)
-    return torch.matmul(w, picked).reshape(B_, S, d)
+    with tracing.span("moe.dispatch"):
+        # each pair's row in the E·C capacity slots of its group; a dropped
+        # pair goes to one extra row, which no expert reads and which stays
+        # zero where combine reads it
+        slot = torch.where(r.keep, r.topi * C + r.pos, E * C).reshape(B_, n, r.g * k, 1)
+        slot = slot.expand(-1, -1, -1, d)
+        tokens = x.reshape(B_, n, r.g, 1, d).expand(-1, -1, -1, k, -1).reshape(B_, n, r.g * k, d)
+        xe = x.new_zeros((B_, n, E * C + 1, d)).scatter(2, slot, tokens)[:, :, :E * C]
+        xe = xe.reshape(B_, n, E, C, d).permute(2, 0, 1, 3, 4).reshape(E, B_ * n * C, d)
+    with tracing.span("moe.experts"):
+        act = _act(cfg)
+        h = act(torch.bmm(xe, params["wg"])) * torch.bmm(xe, params["wi"])
+        ye = torch.bmm(h, params["wo"])                            # (E, B·n·C, d)
+    with tracing.span("moe.combine"):
+        ye = ye.reshape(E, B_, n, C, d).permute(1, 2, 0, 3, 4).reshape(B_, n, E * C, d)
+        ye = torch.cat([ye, ye.new_zeros((B_, n, 1, d))], dim=2)
+        picked = torch.gather(ye, 2, slot).reshape(B_, n, r.g, k, d)
+        w = r.topv.to(x.dtype).reshape(B_, n, r.g, 1, k)
+        return torch.matmul(w, picked).reshape(B_, S, d)
 
 
 def aux_load_balance_loss(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:

@@ -56,6 +56,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.kernels import ops
 from repro_torch.models.layers import attention as A
 from repro_torch.models.layers import basic as B
@@ -163,20 +164,24 @@ def block_decode(cfg, p, x, lcache, pos, kind: str):
     if cfg.cache_quant and "k_scale" in lcache:
         kq, ks_new = _quantize_kv(k)
         vq, vs_new = _quantize_kv(v)
-        kc, vc, kp = A.cache_update(lcache["k"], lcache["v"], lcache["kv_pos"],
-                                    kq, vq, pos, ring=ring)
-        ks, vs, _ = A.cache_update(lcache["k_scale"], lcache["v_scale"],
-                                   lcache["kv_pos"], ks_new, vs_new, pos, ring=ring)
+        with tracing.span("decode.cache_update"):
+            kc, vc, kp = A.cache_update(lcache["k"], lcache["v"], lcache["kv_pos"],
+                                        kq, vq, pos, ring=ring)
+            ks, vs, _ = A.cache_update(lcache["k_scale"], lcache["v_scale"],
+                                       lcache["kv_pos"], ks_new, vs_new, pos, ring=ring)
         # the product in float32, as XLA forms the reference's bf16 one
         # (excess precision): one rounding, to q's dtype
         kd = (kc.float() * ks.float()).to(q.dtype)
         vd = (vc.float() * vs.float()).to(q.dtype)
-        o = A.decode_attention(q, kd, vd, kp, pos, window=window)
+        with tracing.span("decode.attention"):
+            o = A.decode_attention(q, kd, vd, kp, pos, window=window)
         new_cache = {"k": kc, "v": vc, "kv_pos": kp, "k_scale": ks, "v_scale": vs}
     else:
-        kc, vc, kp = A.cache_update(lcache["k"], lcache["v"], lcache["kv_pos"],
-                                    k, v, pos, ring=ring)
-        o = A.decode_attention(q, kc, vc, kp, pos, window=window)
+        with tracing.span("decode.cache_update"):
+            kc, vc, kp = A.cache_update(lcache["k"], lcache["v"], lcache["kv_pos"],
+                                        k, v, pos, ring=ring)
+        with tracing.span("decode.attention"):
+            o = A.decode_attention(q, kc, vc, kp, pos, window=window)
         new_cache = {"k": kc, "v": vc, "kv_pos": kp}
     o = o.reshape(B_, 1, cfg.q_dim)
     return _mix(cfg, p, x, o, aux=False)[0], new_cache
@@ -406,7 +411,11 @@ def init_cache(cfg, batch_size: int, seq_len: int, device) -> Dict:
 
 
 def decode_step(cfg, params, cache, token):
-    """token: (B,1) int -> (logits (B,1,V), new cache)."""
+    """token: (B,1) int -> (logits (B,1,V), new cache).  Spans
+    ``decode.cache_update`` (each layer's cache write) and
+    ``decode.attention`` (its attention over the cache), both in
+    ``block_decode``, and ``decode.stack`` (the ``stack_trees`` calls that
+    rebuild the cache)."""
     pos = cache["pos"]
     x = B.embed(params["embed"], token)
 
@@ -415,7 +424,8 @@ def decode_step(cfg, params, cache, token):
         for i, lp in enumerate(layers):
             h, nc = block_decode(cfg, lp, h, index_tree(stacked, i), pos, kind)
             new.append(nc)
-        return h, stack_trees(new)
+        with tracing.span("decode.stack"):
+            return h, stack_trees(new)
 
     new_cache = {"pos": pos + 1}
     if cfg.attn_pattern == "local_global":
@@ -426,7 +436,8 @@ def decode_step(cfg, params, cache, token):
             x, nf = block_decode(cfg, gp, x, index_tree(cache["full"], g), pos, "full")
             local.append(nl)
             full.append(nf)
-        new_cache.update(local=stack_trees(local), full=stack_trees(full))
+        with tracing.span("decode.stack"):
+            new_cache.update(local=stack_trees(local), full=stack_trees(full))
         if "tail_local" in params:
             x, new_cache["tail"] = run("window", params["tail_local"], cache["tail"], x)
     else:

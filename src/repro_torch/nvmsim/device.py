@@ -12,6 +12,9 @@ just derived.  The device models:
   * torn writes: a crash during a (non-atomic) write may persist an arbitrary
     prefix of the data — this is the failure Erda's CRC detects,
   * an extra write latency (default 150 ns, as in the paper) for latency models.
+
+The port's copy adds spans (``repro_torch.tracing``): ``nvm.write`` around
+``nvm.account`` (the DCW comparison pass), and ``nvm.read``, counting bytes.
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+
+from repro_torch import tracing
 
 
 class TornWrite(Exception):
@@ -120,19 +125,22 @@ class NVMDevice:
     # -------------------------------------------------------------- data path
     def write(self, addr: int, data) -> None:
         """Non-atomic write; may be torn by the fault injector (prefix persists)."""
-        buf = np.frombuffer(bytes(data), dtype=np.uint8) if isinstance(data, (bytes, bytearray)) else np.asarray(data, dtype=np.uint8)
-        n = buf.size
-        if addr < 0 or addr + n > self.size:
-            raise ValueError(f"write out of range: [{addr}, {addr + n}) size={self.size}")
-        torn = self.fault.check(n)
-        persist = n if torn is None else torn
-        old = self.mem[addr : addr + persist]
-        changed = old != buf[:persist]
-        self.stats.bytes_written += n  # logical traffic (what Table 1 counts)
-        self.stats.bytes_programmed += int(changed.sum())
-        self.stats.bits_programmed += int(_POPCOUNT[np.bitwise_xor(old, buf[:persist])].sum())
-        self.stats.write_ops += 1
-        self.mem[addr : addr + persist] = buf[:persist]
+        with tracing.span("nvm.write") as sp:
+            buf = np.frombuffer(bytes(data), dtype=np.uint8) if isinstance(data, (bytes, bytearray)) else np.asarray(data, dtype=np.uint8)
+            n = buf.size
+            sp.add(bytes=n)
+            if addr < 0 or addr + n > self.size:
+                raise ValueError(f"write out of range: [{addr}, {addr + n}) size={self.size}")
+            torn = self.fault.check(n)
+            persist = n if torn is None else torn
+            with tracing.span("nvm.account"):
+                old = self.mem[addr : addr + persist]
+                changed = old != buf[:persist]
+                self.stats.bytes_written += n  # logical traffic (what Table 1 counts)
+                self.stats.bytes_programmed += int(changed.sum())
+                self.stats.bits_programmed += int(_POPCOUNT[np.bitwise_xor(old, buf[:persist])].sum())
+            self.stats.write_ops += 1
+            self.mem[addr : addr + persist] = buf[:persist]
         if torn is not None:
             raise TornWrite(addr, n, persist)
 
@@ -159,9 +167,10 @@ class NVMDevice:
     def read(self, addr: int, nbytes: int) -> np.ndarray:
         if addr < 0 or addr + nbytes > self.size:
             raise ValueError(f"read out of range: [{addr}, {addr + nbytes}) size={self.size}")
-        self.stats.bytes_read += nbytes
-        self.stats.read_ops += 1
-        return self.mem[addr : addr + nbytes].copy()
+        with tracing.span("nvm.read", bytes=nbytes):
+            self.stats.bytes_read += nbytes
+            self.stats.read_ops += 1
+            return self.mem[addr : addr + nbytes].copy()
 
     # ---------------------------------------------------------- latency model
     def write_latency_s(self, nbytes: int) -> float:

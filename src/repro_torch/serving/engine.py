@@ -16,6 +16,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch._device import resolve_device
 from repro_torch.serving.kv_store import ErdaKVPageStore
 
@@ -35,27 +36,45 @@ class ServeEngine:
     def generate(self, batch: Dict, n_tokens: int, *, seq_id: int = 0,
                  crash_at: Optional[int] = None) -> np.ndarray:
         """Greedy decode; optionally 'crash' after `crash_at` tokens (state is
-        then restored from the Erda page store and decoding continues)."""
-        logits, cache = self._prefill(self.params, batch)
-        token = torch.argmax(logits, dim=-1).to(torch.int32)
-        out = [token.cpu().numpy()]
-        step = 0
-        while len(out) < n_tokens:
-            if self.snapshot_every and step % self.snapshot_every == 0:
-                self.pages.snapshot_cache(seq_id, cache)
-                self.pages.put_page(seq_id, "__tokens__", 0,
-                                    np.concatenate(out, axis=1))
-            if crash_at is not None and step == crash_at:
-                cache = self._recover(seq_id, cache)
-                toks = self.pages.get_page(seq_id, "__tokens__", 0).cpu().numpy()
-                out = [toks[:, i : i + 1] for i in range(toks.shape[1])]
-                crash_at = None
-                token = torch.from_numpy(out[-1]).to(self.device)
-                continue
-            logits, cache = self._decode(self.params, cache, token)
-            token = torch.argmax(logits, dim=-1).to(torch.int32)
-            out.append(token.cpu().numpy())
-            step += 1
+        then restored from the Erda page store and decoding continues).
+
+        Spans (``repro_torch.tracing``): ``serve.generate`` (request
+        ``seq_id``) around ``serve.prefill``, ``serve.first_token`` (its
+        argmax and copy to the host), each ``serve.snapshot``, the
+        ``serve.resume`` after the crash (counting the steps it
+        recomputes), and per step ``serve.decode`` (the model call, which
+        only enqueues) and ``serve.token`` (argmax and copy: the host waits
+        for the card here)."""
+        shape = tuple(np.shape(batch["tokens"]))
+        with tracing.span("serve.generate", request=seq_id, batch=shape[0],
+                          prompt_len=shape[-1], tokens=n_tokens):
+            with tracing.span("serve.prefill"):
+                logits, cache = self._prefill(self.params, batch)
+            with tracing.span("serve.first_token"):
+                token = torch.argmax(logits, dim=-1).to(torch.int32)
+                out = [token.cpu().numpy()]
+            step = 0
+            while len(out) < n_tokens:
+                if self.snapshot_every and step % self.snapshot_every == 0:
+                    with tracing.span("serve.snapshot"):
+                        self.pages.snapshot_cache(seq_id, cache)
+                        self.pages.put_page(seq_id, "__tokens__", 0,
+                                            np.concatenate(out, axis=1))
+                if crash_at is not None and step == crash_at:
+                    with tracing.span("serve.resume") as sp:
+                        cache = self._recover(seq_id, cache)
+                        toks = self.pages.get_page(seq_id, "__tokens__", 0).cpu().numpy()
+                        sp.add(recomputed=len(out) - toks.shape[1])
+                        out = [toks[:, i : i + 1] for i in range(toks.shape[1])]
+                        crash_at = None
+                        token = torch.from_numpy(out[-1]).to(self.device)
+                    continue
+                with tracing.span("serve.decode"):
+                    logits, cache = self._decode(self.params, cache, token)
+                with tracing.span("serve.token"):
+                    token = torch.argmax(logits, dim=-1).to(torch.int32)
+                    out.append(token.cpu().numpy())
+                step += 1
         return np.concatenate(out, axis=1)
 
     def _recover(self, seq_id: int, template):

@@ -19,6 +19,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint.serialization import leaf_from_bytes, leaf_to_bytes, to_tensor
 from repro_torch.core import ServerConfig, make_store
@@ -102,22 +103,33 @@ class ErdaKVPageStore:
     # ------------------------------------------------- cache snapshot/restore
     def snapshot_cache(self, seq_id: int, cache) -> int:
         """Persist a whole decode cache tree as numbered pages — one batched
-        multi_write (2 doorbells per shard), not one write per leaf."""
+        multi_write (2 doorbells per shard), not one write per leaf.  Spans
+        ``pages.snapshot`` around ``pages.serialize`` (the copies to the
+        host), counting the page bytes."""
         leaves = flatten_with_path(cache)
-        self.store.multi_write(
-            [(_page_key(seq_id, path, 0), leaf_to_bytes(leaf))
-             for path, leaf in leaves])
+        with tracing.span("pages.snapshot", leaves=len(leaves)) as sp:
+            with tracing.span("pages.serialize"):
+                items = [(_page_key(seq_id, path, 0), leaf_to_bytes(leaf))
+                         for path, leaf in leaves]
+            sp.add(bytes=sum(len(raw) for _key, raw in items))
+            self.store.multi_write(items)
         return len(leaves)
 
     def restore_cache(self, seq_id: int, template):
+        """The cache tree ``snapshot_cache`` persisted, read back, verified
+        and on the store's device; None when a page is missing.  Spans
+        ``pages.restore`` around ``pages.upload`` (the copies to the
+        device), counting the page bytes."""
         leaves = flatten_with_path(template)
-        raws = self.store.multi_read(
-            [_page_key(seq_id, path, 0) for path, _leaf in leaves])
-        out = []
-        for (_path, leaf), raw in zip(leaves, raws):
-            if raw is None:
+        with tracing.span("pages.restore", leaves=len(leaves)) as sp:
+            raws = self.store.multi_read(
+                [_page_key(seq_id, path, 0) for path, _leaf in leaves])
+            if any(raw is None for raw in raws):
                 return None
-            out.append(leaf_from_bytes(raw, self.device).to(to_tensor(leaf).dtype))
+            sp.add(bytes=sum(len(raw) for raw in raws))
+            with tracing.span("pages.upload"):
+                out = [leaf_from_bytes(raw, self.device).to(to_tensor(leaf).dtype)
+                       for (_path, leaf), raw in zip(leaves, raws)]
         return unflatten(template, out)
 
     def compact(self) -> None:

@@ -12,10 +12,14 @@ encdec family's decoder positions use.
 """
 from __future__ import annotations
 
+import itertools
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.sharding.rules import splittable
 from repro_torch.tree import flatten_with_path, map_leaves, unflatten
@@ -51,10 +55,26 @@ def loss_and_grads(loss_fn: Callable, params, batch) -> Tuple[torch.Tensor, Dict
 def make_train_step(model, opt_cfg: AdamWConfig = AdamWConfig(),
                     *, n_microbatches: int = 1,
                     schedule: Optional[Callable] = None):
+    """The step function ``step(state, batch) -> (state, metrics)``.  Spans
+    ``train.step`` (request: the step function's call count, tokens)
+    around ``train.grads`` (forward and backward, every microbatch) and
+    ``train.update`` (AdamW)."""
     loss_fn = model.train_loss
+    calls = itertools.count()
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        params = state["params"]
+        with tracing.span("train.step", request=next(calls),
+                          tokens=math.prod(np.shape(batch.get("tokens", ())))):
+            with tracing.span("train.grads"):
+                loss, grads = _grads(state["params"], batch)
+            with tracing.span("train.update"):
+                lr_scale = schedule(state["opt"]["step"]) if schedule else 1.0
+                new_params, new_opt, metrics = adamw_update(
+                    opt_cfg, state["params"], grads, state["opt"], lr_scale)
+        metrics["loss"] = loss
+        return {"params": new_params, "opt": new_opt}, metrics
+
+    def _grads(params, batch):
         if n_microbatches == 1:
             loss, grads = loss_and_grads(loss_fn, params, batch)
         else:
@@ -76,11 +96,6 @@ def make_train_step(model, opt_cfg: AdamWConfig = AdamWConfig(),
             inv = 1.0 / n_microbatches
             loss = loss * inv
             grads = map_leaves(lambda g: g * inv, grads)
-
-        lr_scale = schedule(state["opt"]["step"]) if schedule else 1.0
-        new_params, new_opt, metrics = adamw_update(
-            opt_cfg, params, grads, state["opt"], lr_scale)
-        metrics["loss"] = loss
-        return {"params": new_params, "opt": new_opt}, metrics
+        return loss, grads
 
     return step

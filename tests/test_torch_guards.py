@@ -19,7 +19,7 @@ PORT = SRC / "repro_torch"
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "repro"}
 
 #: modules copied from repro unchanged apart from the import prefix
-VERBATIM = ["nvmsim/device.py", "core/hashtable.py", "core/log.py",
+VERBATIM = ["core/hashtable.py", "core/log.py",
             "core/server.py", "core/recovery.py", "core/cleaning.py",
             "core/replication.py", "core/resharding.py",
             "core/baselines/redo_logging.py",
@@ -32,11 +32,13 @@ VERBATIM = ["nvmsim/device.py", "core/hashtable.py", "core/log.py",
 #: top-level function and method must stay the reference's
 CHANGED = {
     "core/client.py": {"ErdaClient.__init__", "ErdaClient._parse_object",
-                       "ErdaClient.multi_read"},
+                       "ErdaClient.multi_read", "ErdaClient.multi_write"},
     "core/api.py": {"ErdaStore.__init__", "ErdaClusterStore.__init__",
                     "make_store"},
     "core/cluster.py": {"ErdaCluster.__init__", "ErdaCluster._connect"},
     "core/layout.py": {"verify_records", "view_record"},
+    # the spans of repro_torch.tracing
+    "nvmsim/device.py": {"NVMDevice.write", "NVMDevice.read"},
     "serving/load.py": {"capture_page_fetch_traces",
                         "capture_migration_traces"},
     # the DeviceMesh port: MeshInfo reads a torch mesh's names and sizes,

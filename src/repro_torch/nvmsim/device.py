@@ -14,7 +14,8 @@ just derived.  The device models:
   * an extra write latency (default 150 ns, as in the paper) for latency models.
 
 The port's copy adds spans (``repro_torch.tracing``): ``nvm.write`` around
-``nvm.account`` (the DCW comparison pass), and ``nvm.read``, counting bytes.
+``nvm.account`` (the DCW comparison pass and the store it is fused with), and
+``nvm.read``, counting bytes.
 """
 from __future__ import annotations
 
@@ -88,6 +89,9 @@ class NVMStats:
 
 
 _POPCOUNT = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None], axis=1).sum(1)
+#: bytes a large write's DCW pass XORs at a time (a multiple of 8, so only
+#: the last chunk can leave a tail that is not whole 64-bit words)
+_DCW_CHUNK = 4 << 20
 
 
 class NVMDevice:
@@ -134,13 +138,23 @@ class NVMDevice:
             torn = self.fault.check(n)
             persist = n if torn is None else torn
             with tracing.span("nvm.account"):
-                old = self.mem[addr : addr + persist]
-                changed = old != buf[:persist]
                 self.stats.bytes_written += n  # logical traffic (what Table 1 counts)
-                self.stats.bytes_programmed += int(changed.sum())
-                self.stats.bits_programmed += int(_POPCOUNT[np.bitwise_xor(old, buf[:persist])].sum())
+                # DCW, a chunk at a time: XOR old and new bytes once into one
+                # scratch buffer, count the changed bytes, popcount the XOR as
+                # 64-bit words, then store the new bytes while the chunk is
+                # still in cache (the old ones are read first)
+                scratch = np.empty(min(persist, _DCW_CHUNK), dtype=np.uint8)
+                for lo in range(0, persist, _DCW_CHUNK):
+                    hi = min(lo + _DCW_CHUNK, persist)
+                    old, x = self.mem[addr + lo : addr + hi], scratch[: hi - lo]
+                    np.bitwise_xor(old, buf[lo:hi], out=x)
+                    w = x.size & ~7
+                    self.stats.bytes_programmed += int(np.count_nonzero(x))
+                    self.stats.bits_programmed += int(np.bitwise_count(x[:w].view(np.uint64)).sum())
+                    if w < x.size:  # a tail under 8 bytes, by table
+                        self.stats.bits_programmed += int(_POPCOUNT[x[w:]].sum())
+                    old[...] = buf[lo:hi]
             self.stats.write_ops += 1
-            self.mem[addr : addr + persist] = buf[:persist]
         if torn is not None:
             raise TornWrite(addr, n, persist)
 

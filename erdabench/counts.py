@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+from erdabench import cell
+
 #: dense bf16 tensor-core operations a second
 BF16_TENSOR_OPS_PER_S = 989e12
 #: float32 operations a second outside the tensor cores
@@ -71,7 +73,11 @@ def attention_flops(model: Dict, batch: int, seq: int, causal: bool = True) -> i
 def prefill_flops(model: Dict, batch: int, seq: int) -> int:
     """Nominal operations of one prefill of ``batch`` prompts of ``seq``
     tokens: 2 * weights * tokens through the stack, causal attention, and
-    the unembedding of each prompt's last position."""
+    the unembedding of each prompt's last position.  A family with a
+    module of its own (``cell.family_module``) counts its own."""
+    own = cell.own_family(model)
+    if own is not None:
+        return own.prefill_flops(model, batch, seq)
     tokens = batch * seq
     return (2 * matmul_params_per_token(model) * tokens
             + attention_flops(model, batch, seq)
@@ -83,7 +89,11 @@ def train_flops(model: Dict, batch: int, seq: int) -> int:
     et al. 2022, appendix B): 6 * N * T with N the weights used in matrix
     products (the unembedding, tied or not, included; the lookup not),
     plus 12 * L * H * hd * S a token of attention.  Rematerialisation is not
-    counted: it is hardware work, not model work."""
+    counted: it is hardware work, not model work.  A family with a module
+    of its own (``cell.family_module``) counts its own."""
+    own = cell.own_family(model)
+    if own is not None:
+        return own.train_flops(model, batch, seq)
     tokens = batch * seq
     n = matmul_params_per_token(model) + model["d_model"] * model["vocab_size"]
     attn = 12 * model["n_layers"] * model["n_heads"] * model["head_dim"] * seq

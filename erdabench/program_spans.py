@@ -532,4 +532,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from erdabench.run import pin_hash_seed
+    pin_hash_seed("erdabench.program_spans")
     sys.exit(main())

@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from erdabench import cell as cells
 from erdabench import weights
 from erdabench.reading import Reading
 from erdabench.reference import model as ref_model
@@ -40,6 +41,11 @@ SEGMENT_OF = {"prefill": "prefill", "decode_step": "decode",
 
 
 def leaves(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """(path, tensor) of every leaf, dict keys in sorted order; ``None``
+    holds no leaf, as in the program's page store (a hybrid's cache without
+    an ssm tail)."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in leaves(tree[k], f"{prefix}[{k!r}]")]
     if isinstance(tree, (list, tuple)):
@@ -48,6 +54,8 @@ def leaves(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
 
 
 def map_tree(fn, tree):
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: map_tree(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -194,7 +202,8 @@ class ServeRun:
         self.n_out = self.mix["output_len"]
         self.every = self.mix.get("snapshot_every", 0)
         self.cfg = ModelConfig(**self.m)
-        self.params = weights.make_params(self.m, seed, dev)
+        self.family = cells.family_module(self.m)
+        self.params = self.family.make_params(self.m, seed, dev)
         self.prompts_of = weights.token_stream(seed, self.m["vocab_size"], dev)
         self.rng = np.random.default_rng(seed)
         self.rec = Recorder(dev)
@@ -299,12 +308,12 @@ class ServeRun:
         and the mean over all served tokens (``logit_gap_mean``).  With
         ``precision`` "fp8" the served tokens are those the float8
         reference puts first at the same positions (the control)."""
+        fam = self.family
         ref_model.no_tf32()
-        ref = ref_model.Reference(self.m)
-        logits = ref_model.served_logits(ref, self.params, prompts, served)
+        logits = fam.served_logits(fam.Reference(self.m), self.params, prompts, served)
         if precision != "fp32":
-            low = ref_model.served_logits(ref_model.Reference(self.m, precision),
-                                          self.params, prompts, served)
+            low = fam.served_logits(fam.Reference(self.m, precision),
+                                    self.params, prompts, served)
             served = torch.stack([lg.argmax(-1) for lg in low])
         gaps = torch.cat([lg.max(-1).values - lg.gather(-1, tok[:, None].long())[:, 0]
                           for lg, tok in zip(logits, served)])
@@ -347,8 +356,6 @@ def run(cell, seed: int, seconds: float, trace: bool, dev, t_process: float,
     e2e = {"setup_s": setup_s,
            "ttft_p95_ms": percentile(ttfts, 95.0) * 1e3,
            "output_tokens_per_s": tokens / window_s}
-    if sr.rec.resumes:
-        e2e["resume_mean_ms"] = 1e3 * sum(sr.rec.resumes) / len(sr.rec.resumes)
     prompts, served = sr.sample()
     values = sr.logit_gaps(prompts, served)
     if sr.every:

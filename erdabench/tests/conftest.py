@@ -79,9 +79,6 @@ def make_tiny_root(tmp: Path) -> Path:
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:
             m["workloads"] = train if any("train" in w for w in m["workloads"]) else serve
-    for m in bench["end_to_end"]:
-        if m["name"] == "resume_mean_ms":
-            m["workloads"] = ["olmo_tiny.tiny_preempt"]
     write(tmp / "BENCHMARK.json", bench)
     return tmp
 

@@ -67,5 +67,33 @@ def test_roofline_readers():
 def test_readers_find_nothing_without_a_trace():
     r = Reading(model=MODEL, mix={"batch": 2, "prompt_len": 8})
     for name in ("flash_roofline", "crc_roofline", "device_idle_share.decode",
-                 "decode_step_ms", "snapshot_mb_per_s", "prefill_mfu"):
+                 "decode_step_ms", "snapshot_mb_per_s", "prefill_mfu", "resume_wait_ms"):
         assert cells.reader(name)(r) is None
+
+
+def test_resume_wait_reader():
+    """Each resume runs from the call into restore_cache to the end of the
+    get_page after it (the tokens page); a get_page with no restore before
+    it is no resume."""
+    r = reading()
+    r.calls = [("get_page", 0.0, 0.1, 8), ("snapshot_cache", 0.1, 0.3, 100),
+               ("restore_cache", 1.0, 1.3, 100), ("get_page", 1.3, 1.35, 8),
+               ("decode_step", 1.35, 1.4, 0), ("restore_cache", 2.0, 2.2, 100),
+               ("get_page", 2.2, 2.3, 8)]
+    assert cells.reader("resume_wait_ms")(r) == pytest.approx(1e3 * (0.35 + 0.3) / 2)
+
+
+def test_resume_wait_reads_the_runs_resumes(tiny_root):
+    """On a preempted tiny cell the reader gives the mean of the resumes the
+    serving driver itself times, restore to tokens page."""
+    import time
+
+    import torch
+
+    from erdabench import serve
+    out = serve.run(cells.load("olmo_tiny.tiny_preempt", tiny_root), 3, 0.3, False,
+                    torch.device("cpu"), time.perf_counter())
+    resumes = out["runner"].rec.resumes
+    assert len(resumes) >= 2
+    got = cells.reader("resume_wait_ms")(out["reading"])
+    assert got == pytest.approx(1e3 * sum(resumes) / len(resumes), abs=1.0)

@@ -17,6 +17,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from erdabench import cell as cells
 from erdabench import weights
 from erdabench.reading import Reading
 from erdabench.reference import adamw as ref_adamw
@@ -53,7 +54,7 @@ class TrainRun:
         model = get_model(ModelConfig(**self.m), dev)
         step = make_train_step(model, AdamWConfig(**self.mix["adamw"]))
         self.step_fn = wrap_step(step) if wrap_step is not None else step
-        params = weights.make_params(self.m, seed, dev)
+        params = cells.family_module(self.m).make_params(self.m, seed, dev)
         self.state = {"params": params, "opt": adamw_init(params)}
         self.feed = weights.token_stream(seed, self.m["vocab_size"], dev)
         self.reading = Reading(model=self.m, mix=self.mix)
@@ -109,11 +110,12 @@ def reference_readings(m: Dict, mix: Dict, seed: int, dev, precision: str = "fp3
     """The plain reference's three steps from the same weights and feed:
     each step's loss, the first clipped gradient's norm and each leaf's
     change after the three, by leaf."""
+    fam = cells.family_module(m)
     ref_model.no_tf32()
-    ref = ref_model.Reference(m, precision)
-    tree = weights.make_params(m, seed, dev)
+    ref = fam.Reference(m, precision)
+    tree = fam.make_params(m, seed, dev)
     p0 = [t for _p, t in leaves(tree)]
-    params = map_tree(lambda t: t.float().requires_grad_(True), tree)
+    params = map_tree(lambda t: t.to(torch.float32, copy=True).requires_grad_(True), tree)
     ps = [t for _p, t in leaves(params)]
     del tree
     feed = weights.token_stream(seed, m["vocab_size"], dev)

@@ -14,7 +14,7 @@ from typing import Dict, Optional, Tuple
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | moe | ssm | hybrid | encdec | vlm
+    family: str                  # dense | moe | ssm | hybrid | hybrid_moe | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -26,8 +26,9 @@ class ModelConfig:
     attn_pattern: str = "full"   # full | swa | local_global
     window: int = 0              # sliding-window size (swa / local layers)
     local_per_global: int = 0    # gemma3: 5 local then 1 global per group
-    rope_theta: float = 10_000.0
+    rope_theta: float = 10_000.0  # 0: no position embedding (NoPE)
     norm: str = "rmsnorm"        # rmsnorm | layernorm | nonparam_ln
+    norm_eps: float = 1e-6
     act: str = "silu"            # silu | gelu
     mlp_kind: str = "swiglu"     # swiglu | gelu_mlp
     # MoE
@@ -35,14 +36,27 @@ class ModelConfig:
     n_experts_active: int = 0
     capacity_factor: float = 1.25
     moe_group: int = 256         # GShard dispatch group (perf knob)
+    d_ff_shared: int = 0         # an always-on shared SwiGLU expert's width (0: none)
     # SSM (mamba2)
     ssm_state: int = 0
     ssm_conv: int = 4
     ssm_expand: int = 2
     ssm_head_dim: int = 64
     ssm_chunk: int = 128
+    ssm_conv_bias: bool = False
+    ssm_gated_norm: bool = False  # rmsnorm(y·silu(z))·w (granite 4.0-H), else y·silu(z)·w
     # hybrid (zamba2): one SHARED attention block applied every k ssm layers
     shared_attn_every: int = 0
+    # hybrid_moe (granite 4.0-H): each layer's mixer, "mamba" or "attention",
+    # every mixer followed by the MoE; empty for every other family
+    layer_types: Tuple[str, ...] = ()
+    # µP (granite): x0 = embedding_multiplier·embed; softmax scale
+    # attention_multiplier (0: 1/sqrt(head_dim)); x + residual_multiplier·
+    # block(x); logits / logits_scaling.  The transformer's families read them.
+    embedding_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
     # rwkv6
     rwkv_chunk: int = 64
     # enc-dec (whisper)
@@ -63,7 +77,19 @@ class ModelConfig:
                                  # once); state recurrences (ssm/rwkv) stay
                                  # scanned — <3%% of their layer FLOPs
 
+    def __post_init__(self):
+        # a configuration file's list, kept hashable
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
+        if self.layer_types and len(self.layer_types) != self.n_layers:
+            raise ValueError(f"{self.name}: {len(self.layer_types)} layer_types "
+                             f"for {self.n_layers} layers")
+
     # ------------------------------------------------------------------ utils
+    @property
+    def attn_scale(self) -> Optional[float]:
+        """The softmax scale, None for 1/sqrt(head_dim)."""
+        return self.attention_multiplier or None
+
     @property
     def q_dim(self) -> int:
         return self.n_heads * self.head_dim
@@ -86,6 +112,8 @@ class ModelConfig:
         lpg = self.local_per_global
         if lpg:
             n_layers = lpg + 1  # one full local:global group
+        layer_types = ("mamba", "attention") if self.layer_types else ()  # one of each mixer
+        n_layers = len(layer_types) or n_layers
         return dataclasses.replace(
             self,
             n_layers=n_layers,
@@ -94,6 +122,8 @@ class ModelConfig:
             n_kv_heads=min(4, max(1, self.n_kv_heads * 4 // self.n_heads)),
             head_dim=32,
             d_ff=256 if self.n_experts == 0 else 64,
+            d_ff_shared=128 if self.d_ff_shared else 0,
+            layer_types=layer_types,
             vocab_size=512,
             window=min(self.window, 64) if self.window else 0,
             n_experts=min(self.n_experts, 8),
@@ -110,9 +140,20 @@ class ModelConfig:
         )
 
     def param_count(self) -> int:
-        """Analytic parameter count (for 6·N·D roofline bookkeeping)."""
+        """Analytic parameter count (for 6·N·D roofline bookkeeping); for
+        hybrid_moe every leaf of ``init``'s tree, norms and SSM scalars
+        included."""
         d, f, L = self.d_model, self.d_ff, self.n_layers
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.family == "hybrid_moe":
+            di, ds, nh = self.d_inner, self.ssm_state, self.ssm_heads
+            conv = (di + 2 * ds) * (self.ssm_conv + self.ssm_conv_bias)
+            mamba = d * (2 * di + 2 * ds + nh) + conv + 3 * nh + di * d + di
+            attn = 2 * d * self.q_dim + 2 * d * self.kv_dim
+            moe = d * self.n_experts + 3 * d * f * self.n_experts + 3 * d * self.d_ff_shared
+            n_mamba = self.layer_types.count("mamba")
+            return (emb + d + L * (2 * d + moe) + n_mamba * mamba
+                    + (L - n_mamba) * attn)
         if self.family == "ssm":  # rwkv6
             # time-mix: wr,wk,wv,wg,wo (5·d²) + decay LoRA (2·64·d);
             # channel-mix: wr (d²) + wk/wv (2·d·f)

@@ -58,9 +58,10 @@ def launches_by_route(shapes: Dict[Tuple, int]) -> Dict[str, int]:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True) -> torch.Tensor:
+                         *, causal: bool = True, scale=None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors on the current stream; (BH, S, hd)
-    -> (BH, S, hd) in q's dtype."""
+    -> (BH, S, hd) in q's dtype; ``scale`` the softmax scale (None:
+    1/sqrt(hd))."""
     check_qkv(q, k, v)
     if q.shape[-1] not in HEAD_DIMS:
         raise NotImplementedError(
@@ -82,7 +83,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      bh, s, hd, DTYPE_CODES[q.dtype], int(causal),
-                     1.0 / math.sqrt(hd), stream)
+                     1.0 / math.sqrt(hd) if scale is None else scale, stream)
         if err != 0:
             raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
         COUNT.add((bh, s, hd, dtype_name(q.dtype)))

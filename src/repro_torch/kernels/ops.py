@@ -49,9 +49,10 @@ def crc32_bytes_batch(buffers, device="cuda") -> np.ndarray:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, scale=None) -> torch.Tensor:
     """Same-length self-attention over (B, S, H, hd) with H == KV heads
-    (callers repeat KV for GQA) -> (B, S, H, hd), in q's dtype.  Forward
+    (callers repeat KV for GQA) -> (B, S, H, hd), in q's dtype, with softmax
+    scale ``scale`` (None: 1/sqrt(hd)).  Forward
     only: the kernel writes through a raw pointer, so its output has no
     gradient, and an input that requires one is refused rather than
     silently cut from the graph."""
@@ -66,9 +67,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     flash.check_qkv(q.flatten(0, 1), k.flatten(0, 1), v.flatten(0, 1))
     q, k, v = fold(q), fold(k), fold(v)
     if q.device.type == "cpu":
-        o = ref.attention_ref(q, k, v, causal=causal)
+        o = ref.attention_ref(q, k, v, causal=causal, scale=scale)
     elif q.device.type == "cuda":
-        o = flash.flash_attention_cuda(q, k, v, causal=causal)
+        o = flash.flash_attention_cuda(q, k, v, causal=causal, scale=scale)
     else:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return o.reshape(b, h, s, hd).movedim(1, 2)

@@ -26,11 +26,12 @@ def crc32_ref(data: torch.Tensor) -> torch.Tensor:
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True) -> torch.Tensor:
+                  causal: bool = True, scale=None) -> torch.Tensor:
     """Dense softmax attention in float32, cast back to q's dtype; masked
-    scores are -1e30.  q, k, v: (BH, S, hd)."""
+    scores are -1e30; ``scale`` the softmax scale (None: 1/sqrt(hd)).
+    q, k, v: (BH, S, hd)."""
     s = q.shape[1]
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     logits = torch.einsum("bqh,bkh->bqk", q.float() * scale, k.float())
     if causal:
         mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()

@@ -54,12 +54,12 @@ def init_lm(cfg, gen: torch.Generator, max_seq: int) -> Dict:
 
 
 def _enc_layer(cfg, lp, h, flash: bool):
-    z = B.apply_norm(lp["ln1"], h, cfg.norm)
+    z = B.apply_norm(lp["ln1"], h, cfg.norm, cfg.norm_eps)
     q, k, v = A.qkv(lp["attn"], z, cfg)
     o = T.self_attention(cfg, q, k, v, flash=flash, causal=False)
     o = splittable_grad(o.reshape(h.shape[0], h.shape[1], cfg.q_dim), -1, cfg.n_heads)
     h = h + o @ lp["attn"]["wo"]
-    z = B.apply_norm(lp["ln2"], h, cfg.norm)
+    z = B.apply_norm(lp["ln2"], h, cfg.norm, cfg.norm_eps)
     return h + B.apply_mlp(lp["mlp"], z, cfg)
 
 
@@ -76,7 +76,7 @@ def encode(cfg, params, frames, *, train: bool = False):
     layer = lambda lp, h: _enc_layer(cfg, lp, h, flash)
     for lp in params["enc_layers"]:
         x = B.remat(layer, lp, x) if remat else layer(lp, x)
-    return B.apply_norm(params["enc_norm"], x, cfg.norm)
+    return B.apply_norm(params["enc_norm"], x, cfg.norm, cfg.norm_eps)
 
 
 def _dec_layer(cfg, lp, x, enc_out, *, self_kv=None, cross_kv=None, pos=None,
@@ -86,7 +86,7 @@ def _dec_layer(cfg, lp, x, enc_out, *, self_kv=None, cross_kv=None, pos=None,
     self K/V — (k, v), or the updated cache dict — and the cross (k, v))."""
     x = constrain_batch(x)
     Bsz, S, _ = x.shape
-    z = B.apply_norm(lp["ln1"], x, cfg.norm)
+    z = B.apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
     q, k, v = A.qkv(lp["self_attn"], z, cfg)
     if self_kv is None:
         o = T.self_attention(cfg, q, k, v, flash=flash)
@@ -98,7 +98,7 @@ def _dec_layer(cfg, lp, x, enc_out, *, self_kv=None, cross_kv=None, pos=None,
         new_self = {"k": kc, "v": vc, "kv_pos": kp}
     x = x + splittable_grad(o.reshape(Bsz, S, cfg.q_dim), -1, cfg.n_heads) @ lp["self_attn"]["wo"]
 
-    z = B.apply_norm(lp["ln_x"], x, cfg.norm)
+    z = B.apply_norm(lp["ln_x"], x, cfg.norm, cfg.norm_eps)
     if cross_kv is None:
         q, ck, cv = A.qkv(lp["cross_attn"], z, cfg, kv_x=enc_out)
     else:
@@ -107,7 +107,7 @@ def _dec_layer(cfg, lp, x, enc_out, *, self_kv=None, cross_kv=None, pos=None,
     o = A.full_attention(q, ck, cv, causal=False)
     x = x + splittable_grad(o.reshape(Bsz, S, cfg.q_dim), -1, cfg.n_heads) @ lp["cross_attn"]["wo"]
 
-    z = B.apply_norm(lp["ln2"], x, cfg.norm)
+    z = B.apply_norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
     x = x + B.apply_mlp(lp["mlp"], z, cfg)
     return x, new_self, (ck, cv)
 
@@ -137,7 +137,7 @@ def train_loss(cfg, params, batch) -> torch.Tensor:
     layer = lambda lp, h, e: _dec_layer(cfg, lp, h, e)[0]
     for lp in params["dec_layers"]:
         x = B.remat(layer, lp, x, enc_out) if remat else layer(lp, x, enc_out)
-    x = B.apply_norm(params["final_norm"], x, cfg.norm)
+    x = B.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     return B.lm_loss_chunked(params["embed"], x, tokens, chunk=cfg.loss_chunk)
 
 
@@ -150,7 +150,7 @@ def prefill(cfg, params, batch):
         x, kv, ckv = _dec_layer(cfg, lp, x, enc_out, flash=x.is_cuda)
         selfs.append(kv)
         crosses.append(ckv)
-    x = B.apply_norm(params["final_norm"], x, cfg.norm)
+    x = B.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     logits = B.unembed(params["embed"], x[:, -1:])
     ck, cv = T._stack_kv(crosses)
     return logits, {"pos": torch.tensor(S, dtype=torch.int32, device=x.device),
@@ -180,7 +180,7 @@ def decode_step(cfg, params, cache, token):
         x, sc, _ = _dec_layer(cfg, lp, x, None, self_kv=index_tree(cache["self"], i),
                               cross_kv=index_tree(cache["cross"], i), pos=pos)
         new_self.append(sc)
-    x = B.apply_norm(params["final_norm"], x, cfg.norm)
+    x = B.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     logits = B.unembed(params["embed"], x)
     return logits, {"pos": pos + 1, "self": stack_trees(new_self),
                     "cross": cache["cross"]}

@@ -58,7 +58,7 @@ def init_lm(cfg, gen: torch.Generator) -> Dict:
 
 def _ssm_layer_fwd(cfg, lp, x, state=None):
     x = constrain_batch(x)
-    h = B.apply_norm(lp["ln"], x, cfg.norm)
+    h = B.apply_norm(lp["ln"], x, cfg.norm, cfg.norm_eps)
     if state is None:
         y, new_state = S.apply_ssm(lp["ssm"], h, cfg, None)
     else:
@@ -126,7 +126,7 @@ def train_loss(cfg, params, batch) -> torch.Tensor:
              else group(layers, params["shared"], x))
     if "ssm_tail" in params:
         x = ssm_layers(params["ssm_tail"], x)
-    x = B.apply_norm(params["final_norm"], x, cfg.norm)
+    x = B.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     return B.lm_loss_chunked(params["embed"], x, tokens, chunk=cfg.loss_chunk)
 
 
@@ -135,7 +135,7 @@ def prefill(cfg, params, batch):
     S_ = x.shape[1]
     positions = torch.arange(S_, device=x.device)
     x, states, kvs, tail_states = _forward(cfg, params, x, positions)
-    x = B.apply_norm(params["final_norm"], x, cfg.norm)
+    x = B.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     logits = B.unembed(params["embed"], x[:, -1:])
     cache = {"pos": torch.tensor(S_, dtype=torch.int32, device=x.device),
              "ssm_main": stack_trees([stack_trees(g) for g in states]),
@@ -181,7 +181,7 @@ def decode_step(cfg, params, cache, token):
     new_tail = None
     if "ssm_tail" in params:
         x, new_tail = ssm_layers(params["ssm_tail"], cache["ssm_tail"], x)
-    x = B.apply_norm(params["final_norm"], x, cfg.norm)
+    x = B.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     logits = B.unembed(params["embed"], x)
     return logits, {"pos": pos + 1, "ssm_main": stack_trees(new_main),
                     "attn": stack_trees(new_attn), "ssm_tail": new_tail}

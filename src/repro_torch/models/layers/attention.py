@@ -18,6 +18,8 @@ K/V's sequence gathered once a call, as the reference's
 sharding does not divide its heads is gathered before it is split
 (``splittable``); both are the identity on plain tensors.  The query
 offsets of the reference, which no family's path passes, are dropped.
+The softmax scale is 1/sqrt(head_dim) unless a ``scale`` argument sets
+it (µP's ``attention_multiplier``).
 """
 from __future__ import annotations
 
@@ -70,6 +72,12 @@ def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
     return q.reshape(B, S, n_kv, H // n_kv, hd)
 
 
+def _scaled(qf: torch.Tensor, scale=None) -> torch.Tensor:
+    """Float32 queries times the softmax scale: divided by sqrt(hd) when
+    ``scale`` is None, as the reference does."""
+    return qf / math.sqrt(qf.shape[-1]) if scale is None else qf * scale
+
+
 # ----------------------------------------------------- chunked causal attention
 def _kv_chunk(qg, kj, vj, q_pos, kv_pos, causal: bool, m, l, acc):
     """One KV chunk of the online softmax: (m, l, acc) -> updated."""
@@ -86,7 +94,7 @@ def _kv_chunk(qg, kj, vj, q_pos, kv_pos, causal: bool, m, l, acc):
 
 
 @local_heads
-def chunked_attention(q, k, v, cfg, *, causal: bool = True) -> torch.Tensor:
+def chunked_attention(q, k, v, cfg, *, causal: bool = True, scale=None) -> torch.Tensor:
     """Online-softmax attention over KV chunks.  q:(B,Sq,H,hd), k/v:(B,Skv,KV,hd).
     Each chunk's body is rematerialized in the backward pass (``remat``), so
     training does not keep every chunk's (s, p) score buffers."""
@@ -96,7 +104,7 @@ def chunked_attention(q, k, v, cfg, *, causal: bool = True) -> torch.Tensor:
     ck = min(cfg.attn_chunk, Skv)
     if Skv % ck:
         ck = math.gcd(Skv, ck) or Skv
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     qg = _group(q, KV).float() * scale                        # (B,Sq,KV,G,hd)
     q_pos = torch.arange(Sq, device=q.device)
     G = H // KV
@@ -128,7 +136,7 @@ def _band_chunk(qi, kj, vj, start: int, window: int, scale: float):
 
 
 @local_heads
-def banded_attention(q, k, v, cfg, *, window: int) -> torch.Tensor:
+def banded_attention(q, k, v, cfg, *, window: int, scale=None) -> torch.Tensor:
     """Sliding-window causal attention: each query chunk sees [start-W,
     chunk_end), so compute is O(S·(W+cq)).  q:(B,S,H,hd), k/v:(B,S,KV,hd).
     K/V are padded in front by W zeros so every band is in range; each
@@ -140,7 +148,7 @@ def banded_attention(q, k, v, cfg, *, window: int) -> torch.Tensor:
     if S % cq:
         cq = math.gcd(S, cq)
     W = window
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     kp = F.pad(k, (0, 0, 0, 0, W, 0))
     vp = F.pad(v, (0, 0, 0, 0, W, 0))
     qg = _group(q, KV)
@@ -152,11 +160,11 @@ def banded_attention(q, k, v, cfg, *, window: int) -> torch.Tensor:
 
 # ------------------------------------------------------------------ full (enc)
 @local_heads
-def full_attention(q, k, v, *, causal: bool) -> torch.Tensor:
+def full_attention(q, k, v, *, causal: bool, scale=None) -> torch.Tensor:
     """Small-sequence dense attention."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
-    qg = _group(q, KV).float() / math.sqrt(hd)
+    qg = _scaled(_group(q, KV).float(), scale)
     s = torch.einsum("bqkgh,bckh->bqkgc", qg, k.float())
     if causal:
         mask = torch.ones((Sq, k.shape[1]), dtype=torch.bool, device=q.device).tril()
@@ -168,14 +176,16 @@ def full_attention(q, k, v, *, causal: bool) -> torch.Tensor:
 
 # --------------------------------------------------------------------- decode
 @local_heads
-def decode_attention(q, k_cache, v_cache, kv_positions, pos, *, window: int = 0):
+def decode_attention(q, k_cache, v_cache, kv_positions, pos, *, window: int = 0,
+                     scale=None):
     """One-token attention against a cache.
     q: (B,1,H,hd); caches: (B,C,KV,hd); kv_positions: (C,) absolute positions
     (-1 = empty slot); pos: the current position (0-d tensor or int);
-    ``window`` > 0 also masks positions at or before pos - window."""
+    ``window`` > 0 also masks positions at or before pos - window; ``scale``
+    the softmax scale (None: 1/sqrt(hd))."""
     B, _, H, hd = q.shape
     KV = k_cache.shape[2]
-    qg = _group(q, KV).float() / math.sqrt(hd)
+    qg = _scaled(_group(q, KV).float(), scale)
     s = torch.einsum("bqkgh,bckh->bqkgc", qg, k_cache.float())
     valid = (kv_positions >= 0) & (kv_positions <= pos)
     if window:

@@ -61,15 +61,15 @@ def init_norm(cfg, gen: torch.Generator) -> Dict:
     return {"scale": torch.ones((cfg.d_model,), dtype=dtype_of(cfg))}
 
 
-def apply_norm(params: Dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+def apply_norm(params: Dict, x: torch.Tensor, kind: str, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     if kind in ("layernorm", "nonparam_ln"):
         mu = xf.mean(-1, keepdim=True)
         var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-        y = (xf - mu) * torch.rsqrt(var + 1e-6)
+        y = (xf - mu) * torch.rsqrt(var + eps)
     else:  # rmsnorm
         var = (xf ** 2).mean(-1, keepdim=True)
-        y = xf * torch.rsqrt(var + 1e-6)
+        y = xf * torch.rsqrt(var + eps)
     if params:
         y = y * params["scale"].float()
     return y.to(x.dtype)
@@ -161,10 +161,10 @@ def embed(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
     return lookup(params["table"], tokens.long())
 
 
-def unembed(params: Dict, x: torch.Tensor) -> torch.Tensor:
-    if "unembed" in params:
-        return x @ params["unembed"]
-    return x @ params["table"].T
+def unembed(params: Dict, x: torch.Tensor, logits_scaling: float = 1.0) -> torch.Tensor:
+    """Logits, divided by µP's ``logits_scaling`` unless it is 1."""
+    logits = x @ params["unembed"] if "unembed" in params else x @ params["table"].T
+    return logits if logits_scaling == 1.0 else logits / logits_scaling
 
 
 # ------------------------------------------------------------------------ loss
@@ -176,9 +176,9 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Ten
     return (logz - gold).mean()
 
 
-def _ce_chunk(embed_params: Dict, xc, tc, wc) -> torch.Tensor:
+def _ce_chunk(embed_params: Dict, xc, tc, wc, logits_scaling: float = 1.0) -> torch.Tensor:
     xc = constrain_batch(xc)
-    logits = unembed(embed_params, xc).float()
+    logits = unembed(embed_params, xc, logits_scaling).float()
     logz = torch.logsumexp(logits, dim=-1)
     # on a mesh the gold logit is read from the whole vocab (``replicate_dim``)
     gold = torch.gather(replicate_dim(logits, 2), -1, tc[..., None])[..., 0]
@@ -186,7 +186,7 @@ def _ce_chunk(embed_params: Dict, xc, tc, wc) -> torch.Tensor:
 
 
 def lm_loss_chunked(embed_params: Dict, x: torch.Tensor, tokens: torch.Tensor,
-                    chunk: int = 512) -> torch.Tensor:
+                    chunk: int = 512, logits_scaling: float = 1.0) -> torch.Tensor:
     """Fused unembed + next-token CE over sequence chunks, so the (B, S, V)
     float32 logits never materialize; each chunk is rematerialized in the
     backward pass (``remat``), trading one extra (B, c, V) product for the
@@ -202,5 +202,5 @@ def lm_loss_chunked(embed_params: Dict, x: torch.Tensor, tokens: torch.Tensor,
     for i in range(S // c):
         sl = slice(i * c, (i + 1) * c)
         total = total + remat(_ce_chunk, embed_params, x[:, sl], targets[:, sl],
-                              weights[:, sl])
+                              weights[:, sl], logits_scaling)
     return total / weights.sum()

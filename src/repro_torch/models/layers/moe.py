@@ -22,6 +22,10 @@ granite_moe_3b's prefill (4 x 1024 tokens) the one-hot tensor alone would
 take 336 MB a layer.  The experts run as batched matmuls over the (E,
 B·n·C, d) capacity buffers, as the reference's einsums do, so a decode step
 (g = 1, C = 1) reads every expert's weights.
+
+A config with ``d_ff_shared`` (granite 4.0-H) adds an always-on shared
+expert, a SwiGLU MLP of that width over every token (leaf ``shared``),
+to the routed experts' output; the reference has none.
 """
 from __future__ import annotations
 
@@ -32,16 +36,22 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tracing
-from repro_torch.models.layers.basic import _act, dense_init, dtype_of
+from repro_torch.models.layers.basic import _act, apply_mlp, dense_init, dtype_of
 
 
 def init_moe(cfg, gen: torch.Generator) -> Dict:
     dt = dtype_of(cfg)
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-    return {"router": dense_init(gen, (d, E), torch.float32),
-            "wg": dense_init(gen, (E, d, f), dt),
-            "wi": dense_init(gen, (E, d, f), dt),
-            "wo": dense_init(gen, (E, f, d), dt)}
+    p = {"router": dense_init(gen, (d, E), torch.float32),
+         "wg": dense_init(gen, (E, d, f), dt),
+         "wi": dense_init(gen, (E, d, f), dt),
+         "wo": dense_init(gen, (E, f, d), dt)}
+    if cfg.d_ff_shared:
+        fs = cfg.d_ff_shared
+        p["shared"] = {"wg": dense_init(gen, (d, fs), dt),
+                       "wi": dense_init(gen, (d, fs), dt),
+                       "wo": dense_init(gen, (fs, d), dt)}
+    return p
 
 
 def capacity(cfg, g: int) -> int:
@@ -91,10 +101,12 @@ def route(params: Dict, x: torch.Tensor, cfg) -> Routing:
 
 
 def apply_moe(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d); dropped pairs contribute 0.
+    """x: (B, S, d) -> (B, S, d); dropped pairs contribute 0, and a shared
+    expert adds its output for every token.
 
-    Spans ``moe.route``, ``moe.dispatch``, ``moe.experts`` and
-    ``moe.combine``; while the recorder is on, counters ``moe.pairs`` (the
+    Spans ``moe.route``, ``moe.dispatch``, ``moe.experts``,
+    ``moe.combine`` and ``moe.shared``; while the recorder is on, counters
+    ``moe.pairs`` (the
     routed (token, slot) pairs) and ``moe.dropped`` (those past their
     expert's capacity), the latter summed on x's device."""
     B_, S, d = x.shape
@@ -123,7 +135,11 @@ def apply_moe(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
         ye = torch.cat([ye, ye.new_zeros((B_, n, 1, d))], dim=2)
         picked = torch.gather(ye, 2, slot).reshape(B_, n, r.g, k, d)
         w = r.topv.to(x.dtype).reshape(B_, n, r.g, 1, k)
-        return torch.matmul(w, picked).reshape(B_, S, d)
+        out = torch.matmul(w, picked).reshape(B_, S, d)
+    if "shared" in params:
+        with tracing.span("moe.shared"):
+            out = out + apply_mlp(params["shared"], x, cfg)
+    return out
 
 
 def aux_load_balance_loss(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:

@@ -19,6 +19,16 @@ Parity with the reference, kept on purpose:
     before it scales them, the gate norm's product is float32, and the
     decode state is float32.
 Conv states are copies, not views of the sequence they come from.
+
+Granite 4.0-H's mixer (the hybrid_moe family) adds two options the
+reference lacks: a conv bias (``ssm_conv_bias``, leaf ``conv_b``) and the
+gated RMSNorm (``ssm_gated_norm``): rmsnorm(y·silu(z))·w in float32 over
+all of d_inner, eps ``norm_eps``, where zamba2 scales y·silu(z) by w alone.
+
+Spans (``repro_torch.tracing``): ``ssm.proj`` (in-projection and conv),
+``ssm.scan`` (the chunked SSD; counter ``ssm.chunks``, chunks a call) in a
+sequence, ``ssm.step`` (the one-token recurrence) in decode, and
+``ssm.out`` (gate, norm and out-projection) in both.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.models.layers.basic import dense_init, dtype_of, halved_chunk
 
 
@@ -35,7 +46,7 @@ def init_ssm(cfg, gen: torch.Generator) -> Dict:
     d, di, ds, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     conv_dim = di + 2 * ds
     f32 = torch.float32
-    return {
+    p = {
         "in_proj": dense_init(gen, (d, 2 * di + 2 * ds + nh), dt),
         "conv_w": dense_init(gen, (cfg.ssm_conv, conv_dim), dt, scale=0.5),
         "A_log": torch.zeros((nh,), dtype=f32),
@@ -44,6 +55,9 @@ def init_ssm(cfg, gen: torch.Generator) -> Dict:
         "out_proj": dense_init(gen, (di, d), dt),
         "gate_norm": torch.ones((di,), dtype=dt),
     }
+    if cfg.ssm_conv_bias:
+        p["conv_b"] = torch.zeros((conv_dim,), dtype=dt)
+    return p
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -56,15 +70,18 @@ def _split_proj(cfg, proj):
     return proj[..., :di], proj[..., di:2 * di + 2 * ds], proj[..., 2 * di + 2 * ds:]
 
 
-def _causal_conv(xBC, conv_w, conv_state=None):
+def _causal_conv(xBC, conv_w, conv_state=None, conv_b=None):
     """Depthwise causal conv over time.  xBC: (B,S,Cd); conv_w: (K,Cd);
-    conv_state: (B,K-1,Cd) activations carried for decode.  The taps are
-    summed left to right, as the reference's Python ``sum``."""
+    conv_state: (B,K-1,Cd) activations carried for decode; conv_b: (Cd,)
+    or None.  The taps are summed left to right, as the reference's Python
+    ``sum``, and the bias added last."""
     K = conv_w.shape[0]
     pad = torch.zeros_like(xBC[:, :K - 1]) if conv_state is None else conv_state
     xp = torch.cat([pad, xBC], dim=1)
     S = xBC.shape[1]
     out = sum(xp[:, i:i + S] * conv_w[i] for i in range(K))
+    if conv_b is not None:
+        out = out + conv_b
     return F.silu(out), xp[:, -(K - 1):].clone()
 
 
@@ -114,6 +131,7 @@ def ssm_chunked(cfg, x, B_in, C_in, dt, A, h0=None):
     dAc = dtc * A[None, None, None, :]                   # log-decay per step
     h = (torch.zeros((Bsz, nh, hp, ds), dtype=torch.float32, device=x.device)
          if h0 is None else h0)
+    tracing.count("ssm.chunks", n)
     ys = []
     for j in range(n):
         y, h = _ssd_chunk(h, xc[:, j], Bc[:, j], Cc[:, j], dAc[:, j], dtc[:, j])
@@ -122,10 +140,14 @@ def ssm_chunked(cfg, x, B_in, C_in, dt, A, h0=None):
     return y.to(x.dtype), h
 
 
-def _gate_out(params, y, z, x):
-    """y·silu(z), times the gate norm in float32, cast to x's dtype, and
-    projected out."""
-    y = y * F.silu(z)
+def _gate_out(params, y, z, x, cfg):
+    """y·silu(z), RMS-normalised in float32 when ``cfg.ssm_gated_norm``,
+    times the gate norm in float32, cast to x's dtype, and projected out."""
+    if cfg.ssm_gated_norm:
+        y = y.float() * F.silu(z.float())
+        y = y * torch.rsqrt((y * y).mean(-1, keepdim=True) + cfg.norm_eps)
+    else:
+        y = y * F.silu(z)
     y = (y.float() * params["gate_norm"].float()).to(x.dtype)
     return y @ params["out_proj"]
 
@@ -135,40 +157,48 @@ def apply_ssm(params: Dict, x: torch.Tensor, cfg, state=None):
     dict(conv, h) to resume.  Returns (y, new state)."""
     B, S, d = x.shape
     nh, hp, ds, di = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.d_inner
-    proj = x @ params["in_proj"]
-    z, xBC, dt_raw = _split_proj(cfg, proj)
-    conv_state = None if state is None else state["conv"]
-    xBC, new_conv = _causal_conv(xBC, params["conv_w"], conv_state)
-    xs = xBC[..., :di].reshape(B, S, nh, hp)
-    B_in = xBC[..., di:di + ds]
-    C_in = xBC[..., di + ds:]
-    dt = softplus(dt_raw.float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"])                      # (nh,) negative
-    h0 = None if state is None else state["h"]
-    y, h_last = ssm_chunked(cfg, xs, B_in, C_in, dt, A, h0=h0)
-    y = y + xs * params["D"][None, None, :, None].to(xs.dtype)
-    return _gate_out(params, y.reshape(B, S, di), z, x), {"conv": new_conv, "h": h_last}
+    with tracing.span("ssm.proj"):
+        proj = x @ params["in_proj"]
+        z, xBC, dt_raw = _split_proj(cfg, proj)
+        conv_state = None if state is None else state["conv"]
+        xBC, new_conv = _causal_conv(xBC, params["conv_w"], conv_state, params.get("conv_b"))
+    with tracing.span("ssm.scan"):
+        xs = xBC[..., :di].reshape(B, S, nh, hp)
+        B_in = xBC[..., di:di + ds]
+        C_in = xBC[..., di + ds:]
+        dt = softplus(dt_raw.float() + params["dt_bias"])
+        A = -torch.exp(params["A_log"])                  # (nh,) negative
+        h0 = None if state is None else state["h"]
+        y, h_last = ssm_chunked(cfg, xs, B_in, C_in, dt, A, h0=h0)
+        y = y + xs * params["D"][None, None, :, None].to(xs.dtype)
+    with tracing.span("ssm.out"):
+        y = _gate_out(params, y.reshape(B, S, di), z, x, cfg)
+    return y, {"conv": new_conv, "h": h_last}
 
 
 def decode_ssm(params: Dict, x: torch.Tensor, cfg, state):
     """The single-token recurrence.  x: (B,1,d); state: dict(conv, h)."""
     B = x.shape[0]
     nh, hp, ds, di = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.d_inner
-    proj = x @ params["in_proj"]
-    z, xBC, dt_raw = _split_proj(cfg, proj)
-    xBC, new_conv = _causal_conv(xBC, params["conv_w"], state["conv"])
-    xs = xBC[..., :di].reshape(B, nh, hp)
-    B_in = xBC[..., di:di + ds][:, 0]                    # (B,ds)
-    C_in = xBC[..., di + ds:][:, 0]
-    dt = softplus(dt_raw[:, 0].float() + params["dt_bias"])  # (B,nh)
-    A = -torch.exp(params["A_log"])
-    decay = torch.exp(dt * A)                            # (B,nh)
-    h = state["h"] * decay[..., None, None] + torch.einsum(
-        "bs,bhp,bh->bhps", B_in.float(), xs.float(), dt)
-    y = torch.einsum("bs,bhps->bhp", C_in.float(), h)
-    y = y + xs.float() * params["D"][None, :, None]
-    y = y.reshape(B, 1, di).to(x.dtype)
-    return _gate_out(params, y, z, x), {"conv": new_conv, "h": h}
+    with tracing.span("ssm.proj"):
+        proj = x @ params["in_proj"]
+        z, xBC, dt_raw = _split_proj(cfg, proj)
+        xBC, new_conv = _causal_conv(xBC, params["conv_w"], state["conv"], params.get("conv_b"))
+    with tracing.span("ssm.step"):
+        xs = xBC[..., :di].reshape(B, nh, hp)
+        B_in = xBC[..., di:di + ds][:, 0]                # (B,ds)
+        C_in = xBC[..., di + ds:][:, 0]
+        dt = softplus(dt_raw[:, 0].float() + params["dt_bias"])  # (B,nh)
+        A = -torch.exp(params["A_log"])
+        decay = torch.exp(dt * A)                        # (B,nh)
+        h = state["h"] * decay[..., None, None] + torch.einsum(
+            "bs,bhp,bh->bhps", B_in.float(), xs.float(), dt)
+        y = torch.einsum("bs,bhps->bhp", C_in.float(), h)
+        y = y + xs.float() * params["D"][None, :, None]
+        y = y.reshape(B, 1, di).to(x.dtype)
+    with tracing.span("ssm.out"):
+        y = _gate_out(params, y, z, x, cfg)
+    return y, {"conv": new_conv, "h": h}
 
 
 def init_ssm_state(cfg, batch: int, device=None) -> Dict:

@@ -16,7 +16,9 @@ get_model(cfg, device) -> namespace with:
                                          input of ``shape``'s step kind
 ``family_module`` routes a config as the reference's ``_family_module``
 does: the transformer serves the dense, moe and vlm families,
-``rwkv_model`` the ssm family, ``hybrid`` and ``encdec`` theirs.
+``rwkv_model`` the ssm family, ``hybrid`` and ``encdec`` theirs; the
+transformer also serves hybrid_moe (granite 4.0-H: a Mamba2 or attention
+mixer a layer, each followed by the MoE), which the reference lacks.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ from repro_torch.models import encdec, hybrid, rwkv_model, transformer
 
 
 def family_module(cfg: ModelConfig):
-    if cfg.family in ("dense", "moe", "vlm"):
+    if cfg.family in ("dense", "moe", "vlm", "hybrid_moe"):
         return transformer
     if cfg.family == "encdec":
         return encdec

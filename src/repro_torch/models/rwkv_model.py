@@ -37,10 +37,10 @@ def _block(cfg, lp, x, state=None):
     x = constrain_batch(x)
     tm_state = None if state is None else state["tm"]
     cm_state = None if state is None else state["cm"]
-    h = B.apply_norm(lp["ln1"], x, cfg.norm)
+    h = B.apply_norm(lp["ln1"], x, cfg.norm, cfg.norm_eps)
     y, new_tm = R.apply_time_mix(lp["tm"], h, cfg, tm_state)
     x = x + y
-    h = B.apply_norm(lp["ln2"], x, cfg.norm)
+    h = B.apply_norm(lp["ln2"], x, cfg.norm, cfg.norm_eps)
     y, new_cm = R.apply_channel_mix(lp["cm"], h, cfg, cm_state)
     x = x + y
     return x, {"tm": new_tm, "cm": new_cm}
@@ -49,7 +49,7 @@ def _block(cfg, lp, x, state=None):
 def _inputs(cfg, params, tokens):
     table = params["embed"]["table"]
     x = B.embed(params["embed"], torch.as_tensor(tokens, device=table.device))
-    return B.apply_norm(params["ln_in"], x, cfg.norm)
+    return B.apply_norm(params["ln_in"], x, cfg.norm, cfg.norm_eps)
 
 
 def train_loss(cfg, params, batch) -> torch.Tensor:
@@ -59,7 +59,7 @@ def train_loss(cfg, params, batch) -> torch.Tensor:
     layer = lambda lp, h: _block(cfg, lp, h)[0]
     for lp in params["layers"]:
         x = B.remat(layer, lp, x) if remat else layer(lp, x)
-    x = B.apply_norm(params["final_norm"], x, cfg.norm)
+    x = B.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     return B.lm_loss_chunked(params["embed"], x, tokens, chunk=cfg.loss_chunk)
 
 
@@ -70,7 +70,7 @@ def prefill(cfg, params, batch):
     for lp in params["layers"]:
         x, st = _block(cfg, lp, x)
         states.append(st)
-    x = B.apply_norm(params["final_norm"], x, cfg.norm)
+    x = B.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     logits = B.unembed(params["embed"], x[:, -1:])
     return logits, {"pos": torch.tensor(S, dtype=torch.int32, device=x.device),
                     "layers": stack_trees(states)}
@@ -91,6 +91,6 @@ def decode_step(cfg, params, cache, token):
     for i, lp in enumerate(params["layers"]):
         x, st = _block(cfg, lp, x, state=index_tree(cache["layers"], i))
         new.append(st)
-    x = B.apply_norm(params["final_norm"], x, cfg.norm)
+    x = B.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     logits = B.unembed(params["embed"], x)
     return logits, {"pos": cache["pos"] + 1, "layers": stack_trees(new)}

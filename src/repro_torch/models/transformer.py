@@ -17,6 +17,17 @@ local_global local layer a ``"moe"`` block (``layers.moe``) in place of
 ``"mlp"``, as the reference's ``init_block`` does; each layer's forward
 returns its auxiliary load-balance loss beside its output.
 
+The hybrid_moe family (granite 4.0-H; the JAX package has none) is a full
+stack whose ``layer_types`` give each layer's mixer: a ``"mamba"`` layer
+holds ``"ssm"`` (``layers.ssm``) where the others hold ``"attn"``, and
+every layer, of either kind, its MoE with a shared expert.  Its cache
+holds the attention layers' KV under ``"full"`` beside the Mamba layers'
+``"ssm": {"conv": (n_mamba,B,K-1,Cd), "h": (n_mamba,B,nh,hp,ds)}``.  µP's
+scalars (``embedding_multiplier``, ``attention_multiplier`` as the
+softmax scale, ``residual_multiplier`` on every block's output,
+``logits_scaling``) apply to every family here and are the identity at
+their defaults.
+
 Step functions:
   train_loss(params, batch)           — next-token CE (text positions only
                                         for vlm, whose patch embeddings are
@@ -61,27 +72,35 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import attention as A
 from repro_torch.models.layers import basic as B
 from repro_torch.models.layers import moe as M
+from repro_torch.models.layers import ssm as SSM
 from repro_torch.sharding.rules import constrain_batch, splittable_grad
 from repro_torch.tree import index_tree, stack_trees
 
 CACHE_PAD = 128  # decode caches get S + CACHE_PAD capacity
+#: a layer kind -> the cache entry that holds its state
+CACHE_KEY = {"full": "full", "window": "win", "mamba": "ssm"}
 
 
 def check_supported(cfg) -> None:
     """Raise ``ValueError`` for a config of another family than the
     transformer's (``models.registry`` routes those)."""
-    if cfg.family not in ("dense", "moe", "vlm"):
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid_moe"):
         raise ValueError(f"{cfg.name}: family {cfg.family!r} is not the "
                          f"transformer's (models.registry routes it)")
 
 
 # ---------------------------------------------------------------------- blocks
 def init_block(cfg, gen: torch.Generator, kind: str) -> Dict:
-    """kind: the attention pattern of a plain stack, or ``"local"`` /
-    ``"full"`` for local_global's local and global layers; every layer but
-    a local one is MoE in a moe config."""
-    p = {"ln1": B.init_norm(cfg, gen), "attn": A.init_attention(cfg, gen),
-         "ln2": B.init_norm(cfg, gen)}
+    """kind: the attention pattern of a plain stack, ``"local"`` /
+    ``"full"`` for local_global's local and global layers, or ``"mamba"``
+    for a Mamba2 mixer; every layer but a local one is MoE in a moe
+    config."""
+    p = {"ln1": B.init_norm(cfg, gen)}
+    if kind == "mamba":
+        p["ssm"] = SSM.init_ssm(cfg, gen)
+    else:
+        p["attn"] = A.init_attention(cfg, gen)
+    p["ln2"] = B.init_norm(cfg, gen)
     if cfg.n_experts and kind != "local":
         p["moe"] = M.init_moe(cfg, gen)
     else:
@@ -93,20 +112,29 @@ def _zero(x) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _mix(cfg, p, x, attn_out, *, aux: bool = True):
-    """Residual attn-out projection + MLP/MoE.  Returns (x, aux_loss): 0
-    without MoE, and None when ``aux`` is False (decode).  On a mesh the
-    residual is pinned (``constrain_batch``) before the norm: DTensor would
-    otherwise carry the row-parallel projection's partial sums through the
-    norm's scaling into the MLP, which then runs whole on every 'model'
-    device; GSPMD reduces them here by itself.  ``attn_out``'s gradient is
-    gathered where its heads split unevenly (``splittable_grad``)."""
-    x = constrain_batch(x + splittable_grad(attn_out, -1, cfg.n_heads) @ p["attn"]["wo"])
-    h = B.apply_norm(p["ln2"], x, cfg.norm)
+def _residual(cfg, x, y):
+    """x + y, with y scaled by µP's ``residual_multiplier`` unless it is 1."""
+    return x + (y if cfg.residual_multiplier == 1.0 else cfg.residual_multiplier * y)
+
+
+def _mix(cfg, p, x, mixed, *, aux: bool = True):
+    """Residual mixer output + MLP/MoE.  ``mixed`` is the attention's
+    heads, projected out here, or a Mamba mixer's output, projected
+    already.  Returns (x, aux_loss): 0 without MoE, and None when ``aux`` is
+    False (decode).  On a mesh the residual is pinned (``constrain_batch``)
+    before the norm: DTensor would otherwise carry the row-parallel
+    projection's partial sums through the norm's scaling into the MLP,
+    which then runs whole on every 'model' device; GSPMD reduces them here
+    by itself.  The heads' gradient is gathered where they split unevenly
+    (``splittable_grad``)."""
+    if "attn" in p:
+        mixed = splittable_grad(mixed, -1, cfg.n_heads) @ p["attn"]["wo"]
+    x = constrain_batch(_residual(cfg, x, mixed))
+    h = B.apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
     if "moe" not in p:
-        return x + B.apply_mlp(p["mlp"], h, cfg), (_zero(x) if aux else None)
+        return _residual(cfg, x, B.apply_mlp(p["mlp"], h, cfg)), (_zero(x) if aux else None)
     loss = M.aux_load_balance_loss(p["moe"], h, cfg) if aux else None
-    return x + M.apply_moe(p["moe"], h, cfg), loss
+    return _residual(cfg, x, M.apply_moe(p["moe"], h, cfg)), loss
 
 
 def self_attention(cfg, q, k, v, *, flash: bool, causal: bool = True):
@@ -114,29 +142,35 @@ def self_attention(cfg, q, k, v, *, flash: bool, causal: bool = True):
     (B,S,KV,hd): the flash kernel when ``flash`` (KV repeated for GQA),
     else the reference's plain branch — dense when not causal or up to 512
     tokens, chunked above."""
+    scale = cfg.attn_scale
     if flash:
         G = cfg.n_heads // cfg.n_kv_heads
         kr, vr = (k, v) if G == 1 else (k.repeat_interleave(G, dim=2),
                                         v.repeat_interleave(G, dim=2))
-        return ops.flash_attention(q, kr, vr, causal=causal)
+        return ops.flash_attention(q, kr, vr, causal=causal, scale=scale)
     if not causal or q.shape[1] <= 512:
-        return A.full_attention(q, k, v, causal=causal)
-    return A.chunked_attention(q, k, v, cfg, causal=True)
+        return A.full_attention(q, k, v, causal=causal, scale=scale)
+    return A.chunked_attention(q, k, v, cfg, causal=True, scale=scale)
 
 
 def block_fwd(cfg, p, x, positions, kind: str, *, flash: bool,
               aux: bool = True) -> Tuple[torch.Tensor, Tuple, torch.Tensor]:
     """One layer over the whole sequence; returns (x, (k, v), aux loss, None
-    unless ``aux``).  kind: 'full' | 'window'.  A window layer longer than
-    its window runs banded attention; otherwise ``flash`` sends the
-    attention to the flash kernel (a causal mask equals the window's
-    there), else to the plain branch."""
+    unless ``aux``), a Mamba layer its {conv, h} state in place of (k, v).
+    kind: 'full' | 'window' | 'mamba'.  A window layer longer than its
+    window runs banded attention; otherwise ``flash`` sends the attention
+    to the flash kernel (a causal mask equals the window's there), else to
+    the plain branch."""
     x = constrain_batch(x)
     B_, S, _ = x.shape
-    h = B.apply_norm(p["ln1"], x, cfg.norm)
+    h = B.apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
+    if kind == "mamba":
+        y, state = SSM.apply_ssm(p["ssm"], h, cfg)
+        x, loss = _mix(cfg, p, x, y, aux=aux)
+        return x, state, loss
     q, k, v = A.qkv(p["attn"], h, cfg, positions)
     if kind == "window" and cfg.window and S > cfg.window:
-        o = A.banded_attention(q, k, v, cfg, window=cfg.window)
+        o = A.banded_attention(q, k, v, cfg, window=cfg.window, scale=cfg.attn_scale)
     else:
         o = self_attention(cfg, q, k, v, flash=flash)
     o = o.reshape(B_, S, cfg.q_dim)
@@ -154,11 +188,16 @@ def _quantize_kv(t):
 
 def block_decode(cfg, p, x, lcache, pos, kind: str):
     """x: (B,1,d); lcache: dict(k, v, kv_pos[, k_scale, v_scale]) for this
-    layer, a ring buffer when kind == 'window'."""
+    layer, a ring buffer when kind == 'window', or a Mamba layer's dict(conv,
+    h) when kind == 'mamba'."""
     x = constrain_batch(x)
     B_ = x.shape[0]
-    h = B.apply_norm(p["ln1"], x, cfg.norm)
+    h = B.apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
+    if kind == "mamba":
+        y, state = SSM.decode_ssm(p["ssm"], h, cfg, lcache)
+        return _mix(cfg, p, x, y, aux=False)[0], state
     q, k, v = A.qkv(p["attn"], h, cfg, pos.reshape(1))
+    scale = cfg.attn_scale
     ring = lcache["k"].shape[1] if kind == "window" else 0
     window = cfg.window if kind == "window" else 0
     if cfg.cache_quant and "k_scale" in lcache:
@@ -174,14 +213,14 @@ def block_decode(cfg, p, x, lcache, pos, kind: str):
         kd = (kc.float() * ks.float()).to(q.dtype)
         vd = (vc.float() * vs.float()).to(q.dtype)
         with tracing.span("decode.attention"):
-            o = A.decode_attention(q, kd, vd, kp, pos, window=window)
+            o = A.decode_attention(q, kd, vd, kp, pos, window=window, scale=scale)
         new_cache = {"k": kc, "v": vc, "kv_pos": kp, "k_scale": ks, "v_scale": vs}
     else:
         with tracing.span("decode.cache_update"):
             kc, vc, kp = A.cache_update(lcache["k"], lcache["v"], lcache["kv_pos"],
                                         k, v, pos, ring=ring)
         with tracing.span("decode.attention"):
-            o = A.decode_attention(q, kc, vc, kp, pos, window=window)
+            o = A.decode_attention(q, kc, vc, kp, pos, window=window, scale=scale)
         new_cache = {"k": kc, "v": vc, "kv_pos": kp}
     o = o.reshape(B_, 1, cfg.q_dim)
     return _mix(cfg, p, x, o, aux=False)[0], new_cache
@@ -196,7 +235,9 @@ def _groups(cfg) -> Tuple[int, int]:
 
 
 def layer_plan(cfg) -> Tuple[str, ...]:
-    """Per-layer attention kind."""
+    """Per-layer kind: 'full', 'window' or (hybrid_moe) 'mamba'."""
+    if cfg.family == "hybrid_moe":
+        return tuple("mamba" if t == "mamba" else "full" for t in cfg.layer_types)
     if cfg.attn_pattern == "swa":
         return ("window",) * cfg.n_layers
     if cfg.attn_pattern == "local_global":
@@ -217,6 +258,8 @@ def init_lm(cfg, gen: torch.Generator) -> Dict:
         p["global_layers"] = [init_block(cfg, gen, "full") for _ in range(G)]
         if rem:
             p["tail_local"] = [init_block(cfg, gen, "local") for _ in range(rem)]
+    elif cfg.family == "hybrid_moe":
+        p["layers"] = [init_block(cfg, gen, kind) for kind in layer_plan(cfg)]
     else:
         p["layers"] = [init_block(cfg, gen, cfg.attn_pattern)
                        for _ in range(cfg.n_layers)]
@@ -224,10 +267,15 @@ def init_lm(cfg, gen: torch.Generator) -> Dict:
 
 
 # --------------------------------------------------------------------- forward
+def _embed(cfg, params, tokens):
+    x = B.embed(params["embed"], tokens)
+    return x if cfg.embedding_multiplier == 1.0 else x * cfg.embedding_multiplier
+
+
 def _embed_inputs(cfg, params, batch):
     table = params["embed"]["table"]
     tokens = torch.as_tensor(batch["tokens"], device=table.device)
-    x = B.embed(params["embed"], tokens)
+    x = _embed(cfg, params, tokens)
     if cfg.family == "vlm":
         patches = torch.as_tensor(batch["patches"], device=x.device)
         x = torch.cat([patches.to(x.dtype), x], dim=1)
@@ -241,10 +289,11 @@ def _backbone(cfg, params, x, positions, *, train: bool):
     sum of the layers' auxiliary losses in training (0 when serving, which
     computes none: the reference's prefill drops it).  Serving (``train``
     False) sends attention to the flash kernel on a CUDA tensor and returns
-    the layers' (k, v) as the caches group them: ``{"layers": [kv]}``, or for
-    local_global ``{"local": [[kv] * lpg] * G, "full": [kv] * G[, "tail":
-    [kv] * rem]}``.  Training takes the plain branch, rematerializes as the
-    reference's scans do under ``remat == "full"`` and returns no (k, v)."""
+    the layers' (k, v) as the caches group them: ``{"layers": [kv]}`` (a
+    Mamba layer's entry its state), or for local_global ``{"local": [[kv] *
+    lpg] * G, "full": [kv] * G[, "tail": [kv] * rem]}``.  Training takes the
+    plain branch, rematerializes as the reference's scans do under ``remat
+    == "full"`` and returns no (k, v)."""
     flash = x.is_cuda and not train
     remat = train and cfg.remat == "full"
 
@@ -252,9 +301,9 @@ def _backbone(cfg, params, x, positions, *, train: bool):
         h, _kv, aux = block_fwd(cfg, lp, h, positions, kind, flash=False)
         return h, aux
 
-    def run(kind, layers, h):
+    def run(kinds, layers, h):
         kvs, aux = [], _zero(h)
-        for lp in layers:
+        for lp, kind in zip(layers, kinds):
             if not train:
                 h, kv, _ = block_fwd(cfg, lp, h, positions, kind, flash=flash, aux=False)
                 kvs.append(kv)
@@ -264,12 +313,11 @@ def _backbone(cfg, params, x, positions, *, train: bool):
         return h, kvs, aux
 
     if cfg.attn_pattern != "local_global":
-        kind = "window" if cfg.attn_pattern == "swa" else "full"
-        x, kvs, aux = run(kind, params["layers"], x)
+        x, kvs, aux = run(layer_plan(cfg), params["layers"], x)
         return x, {"layers": kvs}, aux
 
     def group(lps, gp, h):
-        h, lkv, laux = run("window", lps, h)
+        h, lkv, laux = run(("window",) * len(lps), lps, h)
         if train:  # the global layer is rematerialized with its group only
             h, gaux = train_layer(gp, h, "full")
             return h, laux + gaux
@@ -289,7 +337,8 @@ def _backbone(cfg, params, x, positions, *, train: bool):
             out["local"].append(lkv)
             out["full"].append(gkv)
     if "tail_local" in params:
-        x, out["tail"], a = run("window", params["tail_local"], x)
+        x, out["tail"], a = run(("window",) * len(params["tail_local"]),
+                                params["tail_local"], x)
         aux = aux + a
     return x, out, aux
 
@@ -299,10 +348,11 @@ def train_loss(cfg, params, batch) -> torch.Tensor:
     x, positions = _embed_inputs(cfg, params, batch)
     tokens = torch.as_tensor(batch["tokens"], device=x.device)
     x, _, aux = _backbone(cfg, params, x, positions, train=True)
-    x = B.apply_norm(params["final_norm"], x, cfg.norm)
+    x = B.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     if cfg.family == "vlm":
         x = x[:, cfg.n_patches:]  # loss only on text positions
-    loss = B.lm_loss_chunked(params["embed"], x, tokens, chunk=cfg.loss_chunk)
+    loss = B.lm_loss_chunked(params["embed"], x, tokens, chunk=cfg.loss_chunk,
+                             logits_scaling=cfg.logits_scaling)
     if cfg.n_experts:
         loss = loss + 0.01 * aux / cfg.n_layers
     return loss
@@ -354,8 +404,8 @@ def prefill(cfg, params, batch):
     x, positions = _embed_inputs(cfg, params, batch)
     S = x.shape[1]
     x, kvs, _aux = _backbone(cfg, params, x, positions, train=False)
-    x = B.apply_norm(params["final_norm"], x, cfg.norm)
-    logits = B.unembed(params["embed"], x[:, -1:])
+    x = B.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    logits = B.unembed(params["embed"], x[:, -1:], cfg.logits_scaling)
     cache = {"pos": torch.tensor(S, dtype=torch.int32, device=x.device)}
     W = cfg.window
     if cfg.attn_pattern == "local_global":
@@ -366,14 +416,19 @@ def prefill(cfg, params, batch):
     elif cfg.attn_pattern == "swa":
         cache["win"] = _ring_cache_from_kv(*_stack_kv(kvs["layers"]), S, W)
     else:
-        cache["full"] = _full_cache_from_kv(*_stack_kv(kvs["layers"]), S)
+        plan, per = layer_plan(cfg), kvs["layers"]
+        if "mamba" in plan:
+            cache["ssm"] = stack_trees([st for st, k in zip(per, plan) if k == "mamba"])
+            per = [kv for kv, k in zip(per, plan) if k != "mamba"]
+        if per:
+            cache["full"] = _full_cache_from_kv(*_stack_kv(per), S)
     return logits, cache
 
 
 def init_cache(cfg, batch_size: int, seq_len: int, device) -> Dict:
     """Empty cache with capacity for seq_len history (+pad): int8 full
     caches with bf16 scales under ``cache_quant``, W-slot ring caches in the
-    model's dtype for window layers."""
+    model's dtype for window layers, zero Mamba states for mamba layers."""
     check_supported(cfg)
     dt = B.dtype_of(cfg)
     KV, hd = cfg.n_kv_heads, cfg.head_dim
@@ -406,7 +461,12 @@ def init_cache(cfg, batch_size: int, seq_len: int, device) -> Dict:
     elif cfg.attn_pattern == "swa":
         cache["win"] = ring((cfg.n_layers,))
     else:
-        cache["full"] = full(cfg.n_layers)
+        n_mamba = layer_plan(cfg).count("mamba")
+        if n_mamba:
+            cache["ssm"] = stack_trees([SSM.init_ssm_state(cfg, batch_size, device)
+                                        for _ in range(n_mamba)])
+        if n_mamba < cfg.n_layers:
+            cache["full"] = full(cfg.n_layers - n_mamba)
     return cache
 
 
@@ -417,32 +477,38 @@ def decode_step(cfg, params, cache, token):
     ``block_decode``, and ``decode.stack`` (the ``stack_trees`` calls that
     rebuild the cache)."""
     pos = cache["pos"]
-    x = B.embed(params["embed"], token)
+    x = _embed(cfg, params, token)
 
-    def run(kind, layers, stacked, h):
-        new = []
-        for i, lp in enumerate(layers):
-            h, nc = block_decode(cfg, lp, h, index_tree(stacked, i), pos, kind)
-            new.append(nc)
+    def run(kinds, layers, caches, h):
+        """Each layer on the next layer of its kind's stacked cache in
+        ``caches`` (``CACHE_KEY``); returns (h, the same keys' new stacks)."""
+        new = {}
+        for lp, kind in zip(layers, kinds):
+            mine = new.setdefault(CACHE_KEY[kind], [])
+            stacked = caches[CACHE_KEY[kind]]
+            h, nc = block_decode(cfg, lp, h, index_tree(stacked, len(mine)), pos, kind)
+            mine.append(nc)
         with tracing.span("decode.stack"):
-            return h, stack_trees(new)
+            return h, {key: stack_trees(v) for key, v in new.items()}
 
     new_cache = {"pos": pos + 1}
     if cfg.attn_pattern == "local_global":
         local, full = [], []
         for g, (lps, gp) in enumerate(zip(params["local_layers"],
                                           params["global_layers"])):
-            x, nl = run("window", lps, index_tree(cache["local"], g), x)
+            x, nl = run(("window",) * len(lps), lps, {"win": index_tree(cache["local"], g)}, x)
             x, nf = block_decode(cfg, gp, x, index_tree(cache["full"], g), pos, "full")
-            local.append(nl)
+            local.append(nl["win"])
             full.append(nf)
         with tracing.span("decode.stack"):
             new_cache.update(local=stack_trees(local), full=stack_trees(full))
         if "tail_local" in params:
-            x, new_cache["tail"] = run("window", params["tail_local"], cache["tail"], x)
+            tail = params["tail_local"]
+            x, nt = run(("window",) * len(tail), tail, {"win": cache["tail"]}, x)
+            new_cache["tail"] = nt["win"]
     else:
-        kind, ckey = ("window", "win") if cfg.attn_pattern == "swa" else ("full", "full")
-        x, new_cache[ckey] = run(kind, params["layers"], cache[ckey], x)
-    x = B.apply_norm(params["final_norm"], x, cfg.norm)
-    logits = B.unembed(params["embed"], x)
+        x, new = run(layer_plan(cfg), params["layers"], cache, x)
+        new_cache.update(new)
+    x = B.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    logits = B.unembed(params["embed"], x, cfg.logits_scaling)
     return logits, new_cache

@@ -102,6 +102,24 @@ def test_flash_kernel_matches_plain(cuda_device, hd, s, dtype, tol, causal):
     assert err <= tol, err
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)])
+@pytest.mark.parametrize("s", [65, 512, 8192])
+def test_flash_kernel_takes_the_scale(cuda_device, s, dtype, tol):
+    """µP's softmax scale (granite 4.0-H: 0.0078125, not 1/sqrt(128)) reaches
+    the kernel: its output is the plain path's at that scale, and another
+    output than at the default scale."""
+    rng = np.random.default_rng(s)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, s, 2, 128)).astype(np.float32))
+               .to(cuda_device, dtype) for _ in range(3))
+    got = ops.flash_attention(q, k, v, causal=True, scale=0.0078125)
+    default = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    fold = lambda t: t.movedim(2, 1).reshape(2, s, 128)
+    want = ref.attention_ref(fold(q), fold(k), fold(v), causal=True, scale=0.0078125)
+    assert (fold(got).float() - want.float()).abs().max().item() <= tol
+    assert (fold(default).float() - want.float()).abs().max().item() > 10 * tol
+
+
 def test_rope_frequencies_on_card_are_the_cpus(cuda_device):
     """The card rotates by the CPU's frequencies, bit for bit: the two
     devices' pow differ in the last place, which position p multiplies."""
@@ -283,11 +301,14 @@ def test_pattern_train_step_on_card_matches_cpu(cuda_device, arch, kw, seq):
                                    err_msg=p)
 
 
-#: the rwkv, hybrid (with a tail) and encdec families: scaled-down config
-#: overrides, prompt length, and the flash launches a prefill makes
+#: the rwkv, hybrid (with a tail), encdec and hybrid_moe families:
+#: scaled-down config overrides, prompt length, and the flash launches a
+#: prefill makes
 FAMILIES = [("rwkv6_1p6b", {}, 40, 0),
             ("zamba2_1p2b", {"n_layers": 5, "shared_attn_every": 2}, 40, 2),
-            ("whisper_small", {}, 24, 2 + 4)]  # 2 encoder + 4 decoder layers
+            ("whisper_small", {}, 24, 2 + 4),  # 2 encoder + 4 decoder layers
+            ("granite_h_small", {"n_layers": 4, "layer_types": ("mamba", "attention") * 2},
+             40, 2)]
 
 
 @pytest.mark.parametrize("arch,kw,seq,flash_calls", FAMILIES)
@@ -344,7 +365,7 @@ def test_family_train_step_on_card_matches_cpu(cuda_device, arch, kw, seq, _flas
 @pytest.mark.parametrize("arch,kw,seq,flash_calls", FAMILIES[1:])
 def test_family_bf16_prefill_takes_the_tensor_core_route(cuda_device, arch, kw, seq,
                                                          flash_calls):
-    """bf16: every flash launch of a zamba2 or whisper prefill is on the
+    """bf16: every flash launch of a zamba2, whisper or hybrid_moe prefill is on the
     wgmma route, and whisper's encoder launches at its 32 frames."""
     cfg = dataclasses.replace(get_config(arch).scaled_down(), **kw)
     model = get_model(cfg, cuda_device)

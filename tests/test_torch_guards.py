@@ -27,10 +27,15 @@ VERBATIM = ["core/hashtable.py", "core/log.py",
             "fabric/transport.py", "fabric/sim.py",
             *sorted(str(p.relative_to(SRC / "repro"))
                     for d in ("configs", "data", "netsim", "workloads")
-                    for p in (SRC / "repro" / d).glob("*.py"))]
+                    for p in (SRC / "repro" / d).glob("*.py")
+                    if p.relative_to(SRC / "repro").as_posix() != "configs/base.py")]
 #: copies the port changes, with the functions it changes; every other
 #: top-level function and method must stay the reference's
 CHANGED = {
+    # the port's hybrid_moe family (granite 4.0-H): its fields, a softmax
+    # scale, one layer of each mixer when scaled down, its exact count
+    "configs/base.py": {"ModelConfig.__post_init__", "ModelConfig.attn_scale",
+                        "ModelConfig.scaled_down", "ModelConfig.param_count"},
     "core/client.py": {"ErdaClient.__init__", "ErdaClient._parse_object",
                        "ErdaClient.multi_read", "ErdaClient.multi_write"},
     "core/api.py": {"ErdaStore.__init__", "ErdaClusterStore.__init__",

@@ -19,6 +19,10 @@ Phases, each printing one JSON line and raising on any mismatch:
               serve path's and olmo_1b's shapes and at the 64-key tile's
               edges (S = 64, 65, 100), with kernel / plain / SDPA times and
               the bound;
+  decode_attention  the decode kernel against its plain PyTorch version at
+              each benchmark cell's decode shape (olmo_1b chat and preempt,
+              granite_moe_3b long_prompt, granite_h_small rag_8k), every slot
+              valid, with kernel / plain / SDPA times and the bound;
   kv_pages    the KV page store at olmo_1b decode-cache widths: snapshot,
               restore, a torn snapshot, failover — every restore bit-exact;
   checkpoint  the checkpoint manager on an olmo_1b-width bf16 state: save,
@@ -364,6 +368,21 @@ FLASH_SHAPES = [((64, 256, 128), "bfloat16", True),
                 ((32, 1280, 128), "bfloat16", True)]
 #: max |kernel - plain| allowed, by dtype (the reference's tolerances)
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+#: decode-attention shapes: (B, C slots, KV, G, hd), dtype, softmax scale —
+#: each benchmark cell's decode step: olmo_1b.chat (32 x (512 + 128)),
+#: granite_moe_3b.long_prompt (4 x (3840 + 128), 24/8 heads of 64),
+#: granite_h_small.rag_8k (2 x (8192 + 128), 32/8 heads, muP's scale) and
+#: olmo_1b.preempt (2 x (256 + 128)); then chat's cache in float32
+DECODE_SHAPES = [((32, 640, 16, 1, 128), "bfloat16", None),
+                 ((4, 3968, 8, 3, 64), "bfloat16", None),
+                 ((2, 8320, 8, 4, 128), "bfloat16", 0.0078125),
+                 ((2, 384, 16, 1, 128), "bfloat16", None),
+                 ((32, 640, 16, 1, 128), "float32", None)]
+#: (rtol, atol) of |kernel - plain in float32| <= atol + rtol * |plain|, by
+#: dtype (the card tests'): a bf16 output's rounding, at most 2^-8 of the
+#: value, with float32 sums reassociated; a float32 output's sums over up
+#: to 8,320 slots reassociated and the online softmax's rescalings
+DECODE_TOL = {"bfloat16": (2 ** -8, 1e-5), "float32": (2e-5, 2e-6)}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -555,6 +574,18 @@ def flash_bound_ms(bh: int, s: int, hd: int, dtype: str, causal: bool) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def decode_bound_ms(b: int, c: int, kv: int, g: int, hd: int, dtype: str) -> tuple:
+    """The least time the card could take for one decode-attention call over
+    a full cache: K and V (b, c, kv, hd) and the slot positions read once, q
+    read and o written once, over HBM, against 4*b*c*kv*g*hd operations
+    over the CUDA cores' float32 rate.  Returns (ms, "bytes" | "operations")."""
+    elt = 2 if dtype == "bfloat16" else 4
+    t_bytes = (2 * b * c * kv * hd * elt + 2 * b * kv * g * hd * elt + 4 * c) / HBM_BYTES_PER_S
+    t_ops = 4 * b * c * kv * g * hd / CUDA_CORE_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 # ---------------------------------------------------------------- phases
 def phase_device() -> dict:
     import torch
@@ -664,6 +695,60 @@ def run_flash_attention(dev, shapes=FLASH_SHAPES) -> list:
     """One ``flash_case`` per shape; launches here are not the main path's."""
     return [flash_case(shape, dtype, causal, seed=i, dev=dev)
             for i, (shape, dtype, causal) in enumerate(shapes)]
+
+
+def decode_case(shape, dtype: str, seed: int, dev, *, scale=None) -> dict:
+    """The decode kernel through its wrapper (``ops.decode_attention``; on
+    the CPU, the plain version) against the plain version in float32 on the
+    same random (B, C, KV, G, hd) inputs, every slot valid (the bound's
+    work); on the card also the device time of the kernel, the plain
+    version and SDPA (GQA, the slot mask as a boolean mask), and the time of
+    a wrapper call as a caller sees it (``call_ms``).  Raises when an
+    element's error exceeds the dtype's tolerance (``DECODE_TOL``, relative
+    to the plain value); ``of_tol`` is the largest share of it used."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import attention as A
+    b, c, kv, g, hd = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, 1, kv * g, hd), generator=gen, device=dev).to(getattr(torch, dtype))
+    k, v = (torch.randn((b, c, kv, hd), generator=gen, device=dev).to(q.dtype)
+            for _ in range(2))
+    kv_pos = torch.arange(c, dtype=torch.int32, device=dev)
+    pos = torch.tensor(c - 1, dtype=torch.int32, device=dev)
+    kernel = lambda: T.decode_attention(q, k, v, kv_pos, pos, scale=scale)
+    plain = lambda: A.decode_attention(q, k, v, kv_pos, pos, scale=scale)
+    got = kernel()
+    want = A.decode_attention(q.float(), k, v, kv_pos, pos, scale=scale)
+    diff = (got.float() - want).abs()
+    rtol, atol = DECODE_TOL[dtype]
+    err = float(diff.max().item())
+    of_tol = float((diff / (atol + rtol * want.abs())).max().item())
+    check(got.shape == q.shape and got.dtype == q.dtype,
+          f"decode output {tuple(got.shape)} {got.dtype} at {shape}")
+    check(of_tol <= 1.0, f"decode kernel != plain at {shape} {dtype}: {err} "
+          f"({of_tol:.3f} of the tolerance)")
+    bound, by = decode_bound_ms(*shape, dtype)
+    out = {"shape": list(shape), "dtype": dtype, "scale": scale, "max_abs_err": err,
+           "max_abs_plain": float(want.abs().max().item()), "tol": [rtol, atol],
+           "of_tol": of_tol, "bound_ms": bound, "bound_by": by,
+           "ms": None, "plain_ms": None, "library_ms": None, "call_ms": None}
+    if dev.type == "cuda":
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        mask = ((kv_pos >= 0) & (kv_pos <= pos))[None, None, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=scale,
+                                                      enable_gqa=g > 1)
+        out.update(ms=profiled_ms(kernel, 20), plain_ms=profiled_ms(plain, 5),
+                   library_ms=profiled_ms(sdpa, 20), call_ms=cuda_ms(kernel, 20))
+        out["of_bound"] = out["bound_ms"] / out["ms"]
+    return out
+
+
+def run_decode_attention(dev, shapes=DECODE_SHAPES) -> list:
+    """One ``decode_case`` per shape; launches here are not the main path's."""
+    return [decode_case(shape, dtype, seed=i, dev=dev, scale=scale)
+            for i, (shape, dtype, scale) in enumerate(shapes)]
 
 
 def make_kv_cache(shape, seed: int, dev):
@@ -2276,6 +2361,23 @@ def flash_entry(dev, launches: int, shapes: dict, also=()) -> dict:
             "library_ms": case["library_ms"], "call_ms": case["call_ms"]}
 
 
+def decode_entry(dev, launches: int, shapes: dict) -> dict:
+    """The decode kernel at the main paths' most frequent launch, over a
+    full cache, beside its plain version, SDPA and its bound; ``shapes``
+    the main paths' launches by key (B, C, KV, G, hd, splits, dtype)."""
+    b, c, kv, g, hd, _splits, dtype = max(shapes, key=shapes.get)
+    case = decode_case((b, c, kv, g, hd), dtype, seed=7, dev=dev)
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "none: src/repro/models/layers/attention.py:178 is plain jnp",
+            "launches": launches, "matches_plain": True,
+            "shapes": {str(list(k)): n
+                       for k, n in sorted(shapes.items(), key=lambda kv: -kv[1])},
+            **{k: case[k] for k in ("max_abs_err", "of_tol", "shape", "dtype", "ms",
+                                    "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                    "call_ms")}}
+
+
 def verify_round_trip(n: int, w: int, dev, reps: int = 200) -> dict:
     """Host ms of one ``layout.verify_records`` call on ``n`` records whose
     rows are ``w`` words (values of 4w - 20 B): what a read pays for its
@@ -2350,7 +2452,7 @@ def crc_entry(dev, launches: int, shapes: dict, also=(), also_shapes=None,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="device,crc32,flash_attention,kv_pages,"
+    ap.add_argument("--phases", default="device,crc32,flash_attention,decode_attention,kv_pages,"
                     "checkpoint,ycsb,serve_at_load,serve,serve_gemma3,serve_granite_moe,"
                     "serve_gemma3_12b,serve_rwkv6,serve_zamba2,serve_whisper,"
                     "serve_pixtral,train_families,examples,train,dryrun,kernels")
@@ -2374,6 +2476,9 @@ def main(argv=None) -> int:
     if "flash_attention" in phases:
         for case in run_flash_attention(dev):
             emit("flash_attention", **case)
+    if "decode_attention" in phases:
+        for case in run_decode_attention(dev):
+            emit("decode_attention", card=info["nvidia_smi"], **case)
     if "trace_check" in phases:  # not a default phase
         emit("trace_check", **uncounted(lambda: run_trace_check(dev)))
     # each main-path phase resets the counts where its path starts; these sum
@@ -2451,6 +2556,9 @@ def main(argv=None) -> int:
                                     PIXTRAL_PREFILL_FLASH)
                     for k in table if k in fs and k != max(fs, key=fs.get)]
             entries.append(flash_entry(dev, launches["flash_attention"], fs, also=also))
+        if shapes["decode_attention"]:
+            entries.append(decode_entry(dev, launches["decode_attention"],
+                                        shapes["decode_attention"]))
         print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

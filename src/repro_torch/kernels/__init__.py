@@ -1,7 +1,10 @@
-# Hand-written Hopper kernels of the port, one per Pallas kernel of repro:
+# Hand-written Hopper kernels of the port: one per Pallas kernel of repro,
+# and one for decode attention:
 #   crc32.py + csrc/crc32.cu — batch object/shard CRC verification (§4.2)
 #   flash_attention.py + csrc/flash_attention.cu — prefill self-attention
 #     (bf16 on the tensor cores with wgmma/TMA, f32 on the CUDA cores)
-#   csrc/hopper.cuh — the PTX helpers (cp.async, mbarrier, TMA, wgmma) both use
+#   decode_attention.py + csrc/decode_attention.cu — a decode step's attention
+#     over the KV cache (no Pallas counterpart: the reference's is plain jnp)
+#   csrc/hopper.cuh — the PTX helpers (cp.async, mbarrier, TMA, wgmma) they use
 # ops.py holds the public wrappers and launch counts; ref.py the plain
-# PyTorch versions; build.py compiles csrc/ with nvcc at first use.
+# PyTorch versions (decode's is models/layers/attention.py); build.py compiles csrc/ with nvcc at first use.

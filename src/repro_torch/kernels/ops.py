@@ -1,7 +1,10 @@
 """Public wrappers around the port's kernels.
 
 A wrapper runs the kernel's plain version only for a tensor that lies on the
-CPU; for a CUDA tensor it launches the kernel or raises.
+CPU; for a CUDA tensor it launches the kernel or raises.  ``decode_attention``
+takes CUDA tensors alone: its plain version is the model layer's
+(``models.layers.attention.decode_attention``), and its callers pick one of
+the two by device (``models.transformer.decode_attention``).
 """
 from __future__ import annotations
 
@@ -11,11 +14,14 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.kernels import build, crc32, flash_attention as flash, ref
+from repro_torch.kernels import build, crc32, decode_attention as decode, ref
+from repro_torch.kernels import flash_attention as flash
+from repro_torch.sharding.rules import local_heads
 
 #: wrapper name -> its kernel's launch count
 COUNTS: Dict[str, build.LaunchCount] = {"crc32_batch": crc32.COUNT,
-                                        "flash_attention": flash.COUNT}
+                                        "flash_attention": flash.COUNT,
+                                        "decode_attention": decode.COUNT}
 
 
 def reset_counts() -> None:
@@ -73,3 +79,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return o.reshape(b, h, s, hd).movedim(1, 2)
+
+
+@local_heads
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     kv_positions: torch.Tensor, pos, *, window: int = 0,
+                     scale=None) -> torch.Tensor:
+    """One token's attention against a cache, with the arguments and result
+    of the plain ``models.layers.attention.decode_attention``: the decode
+    kernel, on CUDA tensors (``pos`` a 0-d int32 tensor on the card).  On a
+    mesh, each device's (batch, head) shards (``local_heads``)."""
+    if not q.is_cuda:
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    return decode.decode_attention_cuda(q, k_cache, v_cache, kv_positions, pos,
+                                        window=window, scale=scale)

@@ -94,7 +94,7 @@ def _dec_layer(cfg, lp, x, enc_out, *, self_kv=None, cross_kv=None, pos=None,
     else:
         kc, vc, kp = A.cache_update(self_kv["k"], self_kv["v"], self_kv["kv_pos"],
                                     k, v, pos)
-        o = A.decode_attention(q, kc, vc, kp, pos)
+        o = T.decode_attention(q, kc, vc, kp, pos)
         new_self = {"k": kc, "v": vc, "kv_pos": kp}
     x = x + splittable_grad(o.reshape(Bsz, S, cfg.q_dim), -1, cfg.n_heads) @ lp["self_attn"]["wo"]
 

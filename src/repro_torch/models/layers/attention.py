@@ -4,14 +4,14 @@ full or ring-buffer KV caches — the port of
 ``repro/models/layers/attention.py``.
 
 These are the plain versions, in float32 inside and cast back, and
-differentiable: what the CPU runs, and what the card runs except in
-serving's prefill — training's attention (the reference computes it outside
-any kernel too) and decode attention, whose products stay
-``torch.matmul``/``einsum`` as the reference left them to XLA.  Serving's
+differentiable: what the CPU runs, and what the card runs for training's
+attention (the reference computes it outside any kernel too).  Serving's
 prefill attention goes through the flash kernel on the card
 (``models.transformer.block_fwd``), except a window layer longer than its
 window, which runs ``banded_attention`` here on every device (the
-reference's kernel has no window either).  On a mesh the four attentions
+reference's kernel has no window either); decode attention goes through
+the decode kernel there (``kernels.ops.decode_attention``), whose plain
+version is ``decode_attention`` here.  On a mesh the four attentions
 run on each device's (batch, head) shards (``sharding.rules.local_heads``:
 K/V's sequence gathered once a call, as the reference's
 ``constrain_batch_only`` hoists it once a layer), and a projection whose

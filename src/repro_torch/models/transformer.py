@@ -50,6 +50,10 @@ On a CUDA tensor, prefill attention runs the flash kernel
 (``kernels.ops.flash_attention``), except in a window layer longer than
 its window, which runs ``banded_attention`` on every device; on the CPU it
 is the reference's plain branch (dense up to 512 tokens, chunked above).
+Decode attention (``decode_attention``) runs the decode kernel on a CUDA
+tensor (``kernels.ops.decode_attention``, on the bf16 cache, or the int8
+cache's dequantized K/V) and ``layers.attention.decode_attention``
+elsewhere.
 ``train_loss`` always takes the plain branch: the flash kernel has no
 backward (nor has the reference's), and its wrapper refuses inputs that
 require a gradient.  With ``cfg.remat == "full"`` each layer is
@@ -153,6 +157,15 @@ def self_attention(cfg, q, k, v, *, flash: bool, causal: bool = True):
     return A.chunked_attention(q, k, v, cfg, causal=True, scale=scale)
 
 
+def decode_attention(q, k_cache, v_cache, kv_positions, pos, *, window: int = 0,
+                     scale=None):
+    """One token's attention against a cache (``A.decode_attention``'s
+    arguments and result): the decode kernel on a CUDA tensor, the plain
+    version on any other device (the CPU, the dry-run's meta tensors)."""
+    attend = ops.decode_attention if q.is_cuda else A.decode_attention
+    return attend(q, k_cache, v_cache, kv_positions, pos, window=window, scale=scale)
+
+
 def block_fwd(cfg, p, x, positions, kind: str, *, flash: bool,
               aux: bool = True) -> Tuple[torch.Tensor, Tuple, torch.Tensor]:
     """One layer over the whole sequence; returns (x, (k, v), aux loss, None
@@ -213,14 +226,14 @@ def block_decode(cfg, p, x, lcache, pos, kind: str):
         kd = (kc.float() * ks.float()).to(q.dtype)
         vd = (vc.float() * vs.float()).to(q.dtype)
         with tracing.span("decode.attention"):
-            o = A.decode_attention(q, kd, vd, kp, pos, window=window, scale=scale)
+            o = decode_attention(q, kd, vd, kp, pos, window=window, scale=scale)
         new_cache = {"k": kc, "v": vc, "kv_pos": kp, "k_scale": ks, "v_scale": vs}
     else:
         with tracing.span("decode.cache_update"):
             kc, vc, kp = A.cache_update(lcache["k"], lcache["v"], lcache["kv_pos"],
                                         k, v, pos, ring=ring)
         with tracing.span("decode.attention"):
-            o = A.decode_attention(q, kc, vc, kp, pos, window=window, scale=scale)
+            o = decode_attention(q, kc, vc, kp, pos, window=window, scale=scale)
         new_cache = {"k": kc, "v": vc, "kv_pos": kp}
     o = o.reshape(B_, 1, cfg.q_dim)
     return _mix(cfg, p, x, o, aux=False)[0], new_cache

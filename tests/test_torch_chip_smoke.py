@@ -68,6 +68,28 @@ def test_flash_attention_phase_on_cpu():
     assert all(c["ms"] is None for c in out)  # no device times off the card
 
 
+def test_decode_attention_phase_on_cpu():
+    out = chip_smoke.run_decode_attention(
+        torch.device("cpu"), shapes=[((2, 40, 4, 1, 32), "float32", None),
+                                     ((1, 33, 2, 3, 64), "bfloat16", 0.0078125)])
+    # plain vs plain in float32: equal in float32, the output's rounding in
+    # bf16, within 2^-8 of each value (its share of the tolerance under 1)
+    assert out[0]["max_abs_err"] == 0.0 and out[0]["of_tol"] == 0.0
+    assert 0.0 < out[1]["max_abs_err"] and 0.0 < out[1]["of_tol"] <= 1.0
+    assert out[1]["tol"] == [2 ** -8, 1e-5]
+    assert all(c["ms"] is None for c in out)  # no device times off the card
+
+
+def test_decode_bound_at_the_chat_shape_is_bytes():
+    """olmo_1b.chat's step: 168 MB of bf16 K and V a layer, ~50 us."""
+    ms, by = chip_smoke.decode_bound_ms(32, 640, 16, 1, 128, "bfloat16")
+    assert by == "bytes"
+    kv_bytes = 2 * 32 * 640 * 16 * 128 * 2
+    assert ms == pytest.approx((kv_bytes + 2 * 32 * 16 * 128 * 2 + 4 * 640) / 3.35e12 * 1e3)
+    assert 0.050 < ms < 0.0505
+    assert chip_smoke.DECODE_SHAPES[0] == ((32, 640, 16, 1, 128), "bfloat16", None)
+
+
 def test_flash_bound_at_the_serve_shape_is_bytes():
     ms, by = chip_smoke.flash_bound_ms(64, 256, 128, "bfloat16", True)
     assert by == "bytes"
@@ -120,7 +142,11 @@ def test_kernels_line_entries_on_cpu():
                                             (1, 8, 32, "bfloat16"): 1})
     assert flash["shape"] == [2, 40, 32] and flash["dtype"] == "float32"
     assert flash["max_abs_err"] == 0.0 and flash["ms"] is None
-    for entry in (crc, flash):
+    decode = chip_smoke.decode_entry(cpu, 32, {(2, 40, 4, 1, 32, 1, "float32"): 32})
+    assert decode["shape"] == [2, 40, 4, 1, 32] and decode["launches"] == 32
+    assert decode["shapes"] == {"[2, 40, 4, 1, 32, 1, 'float32']": 32}
+    assert decode["max_abs_err"] == 0.0 and decode["ms"] is None
+    for entry in (crc, flash, decode):
         assert {"name", "route", "source", "replaces", "launches", "max_abs_err",
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(entry)
         assert (ROOT / entry["source"]).exists()

@@ -152,9 +152,9 @@ def prefill(cfg, params, batch):
         crosses.append(ckv)
     x = B.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     logits = B.unembed(params["embed"], x[:, -1:])
-    ck, cv = T._stack_kv(crosses)
+    ck, cv = stack_trees(crosses)
     return logits, {"pos": torch.tensor(S, dtype=torch.int32, device=x.device),
-                    "self": T._full_cache_from_kv(*T._stack_kv(selfs), S),
+                    "self": T._full_cache_from_kv(*stack_trees(selfs), S),
                     "cross": {"k": ck, "v": cv}}
 
 

@@ -49,7 +49,7 @@ def init_lm(cfg, gen: torch.Generator) -> Dict:
     p = {"embed": B.init_embedding(cfg, gen),
          "ssm_main": [[_init_ssm_layer(cfg, gen) for _ in range(every)]
                       for _ in range(G)],
-         "shared": T.init_block(cfg, gen, "full"),
+         "shared": T.init_block(cfg, gen, "full", bool(cfg.n_experts)),
          "final_norm": B.init_norm(cfg, gen)}
     if tail:
         p["ssm_tail"] = [_init_ssm_layer(cfg, gen) for _ in range(tail)]
@@ -139,7 +139,7 @@ def prefill(cfg, params, batch):
     logits = B.unembed(params["embed"], x[:, -1:])
     cache = {"pos": torch.tensor(S_, dtype=torch.int32, device=x.device),
              "ssm_main": stack_trees([stack_trees(g) for g in states]),
-             "attn": T._full_cache_from_kv(*T._stack_kv(kvs), S_),
+             "attn": T._full_cache_from_kv(*stack_trees(kvs), S_),
              "ssm_tail": None if tail_states is None else stack_trees(tail_states)}
     return logits, cache
 

@@ -33,7 +33,7 @@ from repro_torch.models import encdec, hybrid, rwkv_model, transformer
 
 
 def family_module(cfg: ModelConfig):
-    if cfg.family in ("dense", "moe", "vlm", "hybrid_moe"):
+    if cfg.family in transformer.FAMILIES:
         return transformer
     if cfg.family == "encdec":
         return encdec

@@ -10,7 +10,9 @@ into per-layer lists, run by plain loops (the reference's ``scan_layers``):
 [block] * G`` and, when ``n_layers`` leaves a remainder, ``"tail_local":
 [block] * rem`` (gemma3_27b: 62 = 10 x 6 + 2).  ``models.convert`` stacks
 them into the reference's (G, local_per_global, ...), (G, ...) and
-(rem, ...) leaves.
+(rem, ...) leaves.  ``schedule`` decides that layout once: each layer's
+kind, MoE, block path, cache slot and remat unit, in forward order; init,
+forward, prefill, the empty cache and decode each walk it.
 
 A moe config (``n_experts`` > 0) gives every layer that is not a
 local_global local layer a ``"moe"`` block (``layers.moe``) in place of
@@ -56,17 +58,18 @@ cache's dequantized K/V) and ``layers.attention.decode_attention``
 elsewhere.
 ``train_loss`` always takes the plain branch: the flash kernel has no
 backward (nor has the reference's), and its wrapper refuses inputs that
-require a gradient.  With ``cfg.remat == "full"`` each layer is
-rematerialized in the backward pass, as the reference's scan body is, and
-for local_global the whole group as well.  Decode drops the aux loss, as
-the reference's does.  The other families have modules of their own
+require a gradient.  With ``cfg.remat == "full"`` each remat unit (a
+layer, or a local_global group) is rematerialized in the backward pass, as
+the reference's scan bodies are, and a group's local layers each as well.
+Decode drops the aux loss, as the reference's does.  The other families have modules of their own
 (``rwkv_model``, ``hybrid``, ``encdec``), which reuse ``block_fwd``,
 ``block_decode``, ``self_attention`` and the cache helpers here, as the
 reference's import its.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import functools
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -77,35 +80,25 @@ from repro_torch.models.layers import attention as A
 from repro_torch.models.layers import basic as B
 from repro_torch.models.layers import moe as M
 from repro_torch.models.layers import ssm as SSM
-from repro_torch.sharding.rules import constrain_batch, splittable_grad
+from repro_torch.sharding.rules import constrain_batch, local_heads, splittable_grad
 from repro_torch.tree import index_tree, stack_trees
 
 CACHE_PAD = 128  # decode caches get S + CACHE_PAD capacity
-#: a layer kind -> the cache entry that holds its state
-CACHE_KEY = {"full": "full", "window": "win", "mamba": "ssm"}
-
-
-def check_supported(cfg) -> None:
-    """Raise ``ValueError`` for a config of another family than the
-    transformer's (``models.registry`` routes those)."""
-    if cfg.family not in ("dense", "moe", "vlm", "hybrid_moe"):
-        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not the "
-                         f"transformer's (models.registry routes it)")
+#: the families this module serves (``models.registry`` routes the others)
+FAMILIES = ("dense", "moe", "vlm", "hybrid_moe")
 
 
 # ---------------------------------------------------------------------- blocks
-def init_block(cfg, gen: torch.Generator, kind: str) -> Dict:
-    """kind: the attention pattern of a plain stack, ``"local"`` /
-    ``"full"`` for local_global's local and global layers, or ``"mamba"``
-    for a Mamba2 mixer; every layer but a local one is MoE in a moe
-    config."""
+def init_block(cfg, gen: torch.Generator, kind: str, moe: bool) -> Dict:
+    """kind: a layer kind (``Layer.kind``): a Mamba2 mixer for ``"mamba"``,
+    attention for the others; ``moe``: an MoE block in place of the MLP."""
     p = {"ln1": B.init_norm(cfg, gen)}
     if kind == "mamba":
         p["ssm"] = SSM.init_ssm(cfg, gen)
     else:
         p["attn"] = A.init_attention(cfg, gen)
     p["ln2"] = B.init_norm(cfg, gen)
-    if cfg.n_experts and kind != "local":
+    if moe:
         p["moe"] = M.init_moe(cfg, gen)
     else:
         p["mlp"] = B.init_mlp(cfg, gen)
@@ -157,11 +150,13 @@ def self_attention(cfg, q, k, v, *, flash: bool, causal: bool = True):
     return A.chunked_attention(q, k, v, cfg, causal=True, scale=scale)
 
 
+@local_heads
 def decode_attention(q, k_cache, v_cache, kv_positions, pos, *, window: int = 0,
                      scale=None):
     """One token's attention against a cache (``A.decode_attention``'s
     arguments and result): the decode kernel on a CUDA tensor, the plain
-    version on any other device (the CPU, the dry-run's meta tensors)."""
+    version on any other device (the CPU, the dry-run's meta tensors); on a
+    mesh, either on each device's (batch, head) shards (``local_heads``)."""
     attend = ops.decode_attention if q.is_cuda else A.decode_attention
     return attend(q, k_cache, v_cache, kv_positions, pos, window=window, scale=scale)
 
@@ -239,43 +234,108 @@ def block_decode(cfg, p, x, lcache, pos, kind: str):
     return _mix(cfg, p, x, o, aux=False)[0], new_cache
 
 
-# ----------------------------------------------------------------- layer plans
-def _groups(cfg) -> Tuple[int, int]:
-    """local_global: (G whole groups, rem trailing local layers)."""
-    g = cfg.local_per_global + 1
-    G = cfg.n_layers // g
-    return G, cfg.n_layers - G * g
+# -------------------------------------------------------------- layer schedule
+class Layer(NamedTuple):
+    """One layer of the stack, as ``schedule`` lays it out."""
+    kind: str               # "full" | "window" | "mamba"
+    moe: bool               # an MoE block in place of the MLP
+    path: Tuple             # its block in ``init_lm``'s tree, e.g. ("layers", 3)
+    entry: str              # the cache entry that holds its state
+    slot: Tuple[int, ...]   # its index into that entry's leading dims
+    unit: int               # the layers of one unit are rematerialized together
+
+
+def schedule(cfg) -> Tuple[Layer, ...]:
+    """The stack's layers in forward order; the one place that reads the
+    config's family and attention pattern for the layout.  A plain stack
+    (full, swa, hybrid_moe) is ``"layers"``, a layer a unit, with its
+    state under ``"full"``, ``"win"`` or ``"ssm"`` (hybrid_moe's Mamba
+    layers); local_global is G groups of ``local_per_global`` window
+    layers (``"local_layers"``, ``"local"``: (G, lpg)) and one full layer
+    (``"global_layers"``, ``"full"``: (G,)), a group a unit, then the
+    remainder's window layers (``"tail_local"``, ``"tail"``).  A local
+    layer has no MoE, every other layer of a moe config has one."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not the "
+                         f"transformer's (models.registry routes it)")
+    return _schedule(cfg.attn_pattern, cfg.n_layers, cfg.local_per_global,
+                     cfg.layer_types if cfg.family == "hybrid_moe" else (),
+                     bool(cfg.n_experts))
+
+
+@functools.cache
+def _schedule(pattern, n_layers, lpg, layer_types, moe) -> Tuple[Layer, ...]:
+    if pattern == "local_global":
+        G = n_layers // (lpg + 1)
+        out = []
+        for g in range(G):
+            out += [Layer("window", False, ("local_layers", g, j), "local", (g, j), g)
+                    for j in range(lpg)]
+            out.append(Layer("full", moe, ("global_layers", g), "full", (g,), g))
+        return tuple(out) + tuple(
+            Layer("window", False, ("tail_local", r), "tail", (r,), G + r)
+            for r in range(n_layers - G * (lpg + 1)))
+    if layer_types:
+        kinds = ["mamba" if t == "mamba" else "full" for t in layer_types]
+    else:
+        kinds = ["window" if pattern == "swa" else "full"] * n_layers
+    entries = [{"full": "full", "window": "win", "mamba": "ssm"}[k] for k in kinds]
+    return tuple(Layer(k, moe, ("layers", i), e, (entries[:i].count(e),), i)
+                 for i, (k, e) in enumerate(zip(kinds, entries)))
 
 
 def layer_plan(cfg) -> Tuple[str, ...]:
     """Per-layer kind: 'full', 'window' or (hybrid_moe) 'mamba'."""
-    if cfg.family == "hybrid_moe":
-        return tuple("mamba" if t == "mamba" else "full" for t in cfg.layer_types)
-    if cfg.attn_pattern == "swa":
-        return ("window",) * cfg.n_layers
-    if cfg.attn_pattern == "local_global":
-        G, rem = _groups(cfg)
-        pat = ("window",) * cfg.local_per_global + ("full",)
-        return pat * G + ("window",) * rem
-    return ("full",) * cfg.n_layers
+    return tuple(layer.kind for layer in schedule(cfg))
+
+
+def _split(layers, key) -> Dict:
+    """key -> its layers, keys in order of first use."""
+    out = {}
+    for layer in layers:
+        out.setdefault(key(layer), []).append(layer)
+    return out
+
+
+@functools.cache
+def _entries(layers: Tuple[Layer, ...]) -> Tuple[Tuple[str, str, Tuple[int, ...]], ...]:
+    """(cache entry, its layers' kind, its leading dims), in order of first use."""
+    return tuple((e, ls[0].kind, _lead([l.slot for l in ls]))
+                 for e, ls in _split(layers, lambda l: l.entry).items())
+
+
+def _lead(indices) -> Tuple[int, ...]:
+    """The leading dims that row-major ``indices`` fill."""
+    return tuple(i + 1 for i in indices[-1])
+
+
+def _nest(items, lead):
+    """Items in row-major order -> nested lists with dims ``lead``."""
+    if len(lead) == 1:
+        return list(items)
+    n = len(items) // lead[0]
+    return [_nest(items[i:i + n], lead[1:]) for i in range(0, len(items), n)]
+
+
+def _stack(items, lead):
+    """Per-slot trees in slot order -> one tree with leading dims ``lead``."""
+    if len(lead) > 1:
+        items = [_stack(part, lead[1:]) for part in _nest(items, lead)]
+    return stack_trees(items)
+
+
+def _block(params, layer: Layer) -> Dict:
+    return functools.reduce(lambda node, key: node[key], layer.path, params)
 
 
 # ------------------------------------------------------------------------ init
 def init_lm(cfg, gen: torch.Generator) -> Dict:
-    check_supported(cfg)
+    """Blocks drawn in tree order (all local layers, then the global ones,
+    then the tail), as the reference's stacked init draws them."""
     p = {"embed": B.init_embedding(cfg, gen), "final_norm": B.init_norm(cfg, gen)}
-    if cfg.attn_pattern == "local_global":
-        G, rem = _groups(cfg)
-        p["local_layers"] = [[init_block(cfg, gen, "local")
-                              for _ in range(cfg.local_per_global)] for _ in range(G)]
-        p["global_layers"] = [init_block(cfg, gen, "full") for _ in range(G)]
-        if rem:
-            p["tail_local"] = [init_block(cfg, gen, "local") for _ in range(rem)]
-    elif cfg.family == "hybrid_moe":
-        p["layers"] = [init_block(cfg, gen, kind) for kind in layer_plan(cfg)]
-    else:
-        p["layers"] = [init_block(cfg, gen, cfg.attn_pattern)
-                       for _ in range(cfg.n_layers)]
+    for top, layers in _split(schedule(cfg), lambda l: l.path[0]).items():
+        p[top] = _nest([init_block(cfg, gen, l.kind, l.moe) for l in layers],
+                       _lead([l.path[1:] for l in layers]))
     return p
 
 
@@ -298,66 +358,46 @@ def _embed_inputs(cfg, params, batch):
 
 
 def _backbone(cfg, params, x, positions, *, train: bool):
-    """Every layer over the whole sequence; returns (x, kvs, aux), aux the
-    sum of the layers' auxiliary losses in training (0 when serving, which
-    computes none: the reference's prefill drops it).  Serving (``train``
-    False) sends attention to the flash kernel on a CUDA tensor and returns
-    the layers' (k, v) as the caches group them: ``{"layers": [kv]}`` (a
-    Mamba layer's entry its state), or for local_global ``{"local": [[kv] *
-    lpg] * G, "full": [kv] * G[, "tail": [kv] * rem]}``.  Training takes the
-    plain branch, rematerializes as the reference's scans do under ``remat
-    == "full"`` and returns no (k, v)."""
+    """Every layer over the whole sequence, a remat unit at a time (``Layer.
+    unit``); returns (x, states, aux), aux the sum of the layers' auxiliary
+    losses in training (0 when serving, which computes none: the
+    reference's prefill drops it).  Serving (``train`` False) sends
+    attention to the flash kernel on a CUDA tensor and returns each cache
+    entry's per-layer (k, v) or Mamba states in slot order.  Training takes
+    the plain branch and returns no states; under ``remat == "full"`` it
+    rematerializes each unit whole and, inside a unit of several (a
+    local_global group), each layer but the last on its own, as the
+    reference's nested scans do."""
     flash = x.is_cuda and not train
     remat = train and cfg.remat == "full"
+    states, aux = {}, _zero(x)
 
-    def train_layer(lp, h, kind):
-        h, _kv, aux = block_fwd(cfg, lp, h, positions, kind, flash=False)
-        return h, aux
+    def layer_fwd(kind, lp, h):
+        h, _kv, a = block_fwd(cfg, lp, h, positions, kind, flash=False)
+        return h, a
 
-    def run(kinds, layers, h):
-        kvs, aux = [], _zero(h)
-        for lp, kind in zip(layers, kinds):
-            if not train:
-                h, kv, _ = block_fwd(cfg, lp, h, positions, kind, flash=flash, aux=False)
-                kvs.append(kv)
-                continue
-            h, a = B.remat(train_layer, lp, h, kind) if remat else train_layer(lp, h, kind)
-            aux = aux + a
-        return h, kvs, aux
+    def unit_fwd(kinds, lps, h):
+        auxes = []
+        for n, (kind, lp) in enumerate(zip(kinds, lps), 1):
+            own = remat and n < len(kinds)
+            h, a = B.remat(layer_fwd, kind, lp, h) if own else layer_fwd(kind, lp, h)
+            auxes.append(a)
+        return h, functools.reduce(torch.add, auxes)
 
-    if cfg.attn_pattern != "local_global":
-        x, kvs, aux = run(layer_plan(cfg), params["layers"], x)
-        return x, {"layers": kvs}, aux
-
-    def group(lps, gp, h):
-        h, lkv, laux = run(("window",) * len(lps), lps, h)
-        if train:  # the global layer is rematerialized with its group only
-            h, gaux = train_layer(gp, h, "full")
-            return h, laux + gaux
-        h, gkv, _ = block_fwd(cfg, gp, h, positions, "full", flash=flash, aux=False)
-        return h, lkv, gkv
-
-    out = {"local": [], "full": []}
-    aux = _zero(x)
-    for lps, gp in zip(params["local_layers"], params["global_layers"]):
-        if train:
-            # remat the WHOLE group, as the reference does: its global
-            # layer's activations are recomputed, not kept per group
-            x, a = B.remat(group, lps, gp, x) if remat else group(lps, gp, x)
-            aux = aux + a
-        else:
-            x, lkv, gkv = group(lps, gp, x)
-            out["local"].append(lkv)
-            out["full"].append(gkv)
-    if "tail_local" in params:
-        x, out["tail"], a = run(("window",) * len(params["tail_local"]),
-                                params["tail_local"], x)
+    for unit in _split(schedule(cfg), lambda l: l.unit).values():
+        lps = [_block(params, layer) for layer in unit]
+        if not train:
+            for layer, lp in zip(unit, lps):
+                x, st, _ = block_fwd(cfg, lp, x, positions, layer.kind, flash=flash, aux=False)
+                states.setdefault(layer.entry, []).append(st)
+            continue
+        kinds = tuple(layer.kind for layer in unit)
+        x, a = B.remat(unit_fwd, kinds, lps, x) if remat else unit_fwd(kinds, lps, x)
         aux = aux + a
-    return x, out, aux
+    return x, states, aux
 
 
 def train_loss(cfg, params, batch) -> torch.Tensor:
-    check_supported(cfg)
     x, positions = _embed_inputs(cfg, params, batch)
     tokens = torch.as_tensor(batch["tokens"], device=x.device)
     x, _, aux = _backbone(cfg, params, x, positions, train=True)
@@ -372,14 +412,6 @@ def train_loss(cfg, params, batch) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------- caches
-def _stack_kv(kvs) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(nested lists of) per-layer (k, v) -> stacked (..., B, S, KV, hd)."""
-    if isinstance(kvs, tuple):
-        return kvs
-    parts = [_stack_kv(kv) for kv in kvs]
-    return torch.stack([k for k, _ in parts]), torch.stack([v for _, v in parts])
-
-
 def _full_cache_from_kv(k, v, S, pad=CACHE_PAD):
     """k, v: (L,B,S,KV,hd) -> capacity S+pad cache with (L, S+pad) kv_pos."""
     kc = F.pad(k, (0, 0, 0, 0, 0, pad))
@@ -413,28 +445,16 @@ def _ring_cache_from_kv(k, v, S, W):
 
 
 def prefill(cfg, params, batch):
-    check_supported(cfg)
     x, positions = _embed_inputs(cfg, params, batch)
     S = x.shape[1]
-    x, kvs, _aux = _backbone(cfg, params, x, positions, train=False)
+    x, states, _aux = _backbone(cfg, params, x, positions, train=False)
     x = B.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     logits = B.unembed(params["embed"], x[:, -1:], cfg.logits_scaling)
     cache = {"pos": torch.tensor(S, dtype=torch.int32, device=x.device)}
-    W = cfg.window
-    if cfg.attn_pattern == "local_global":
-        cache["local"] = _ring_cache_from_kv(*_stack_kv(kvs["local"]), S, W)
-        cache["full"] = _full_cache_from_kv(*_stack_kv(kvs["full"]), S)
-        if "tail" in kvs:
-            cache["tail"] = _ring_cache_from_kv(*_stack_kv(kvs["tail"]), S, W)
-    elif cfg.attn_pattern == "swa":
-        cache["win"] = _ring_cache_from_kv(*_stack_kv(kvs["layers"]), S, W)
-    else:
-        plan, per = layer_plan(cfg), kvs["layers"]
-        if "mamba" in plan:
-            cache["ssm"] = stack_trees([st for st, k in zip(per, plan) if k == "mamba"])
-            per = [kv for kv, k in zip(per, plan) if k != "mamba"]
-        if per:
-            cache["full"] = _full_cache_from_kv(*_stack_kv(per), S)
+    for entry, kind, lead in _entries(schedule(cfg)):
+        st = _stack(states[entry], lead)
+        cache[entry] = (st if kind == "mamba" else _full_cache_from_kv(*st, S)
+                        if kind == "full" else _ring_cache_from_kv(*st, S, cfg.window))
     return logits, cache
 
 
@@ -442,86 +462,55 @@ def init_cache(cfg, batch_size: int, seq_len: int, device) -> Dict:
     """Empty cache with capacity for seq_len history (+pad): int8 full
     caches with bf16 scales under ``cache_quant``, W-slot ring caches in the
     model's dtype for window layers, zero Mamba states for mamba layers."""
-    check_supported(cfg)
     dt = B.dtype_of(cfg)
-    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    KV, hd, W = cfg.n_kv_heads, cfg.head_dim, cfg.window
     C = seq_len + CACHE_PAD
     zeros = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=device)
     empty = lambda shape: torch.full(shape, -1, dtype=torch.int32, device=device)
 
-    def full(n):
+    def full(lead):
         kv_dt = torch.int8 if cfg.cache_quant else dt
-        c = {"k": zeros((n, batch_size, C, KV, hd), kv_dt),
-             "v": zeros((n, batch_size, C, KV, hd), kv_dt),
-             "kv_pos": empty((n, C))}
+        c = {"k": zeros(lead + (batch_size, C, KV, hd), kv_dt),
+             "v": zeros(lead + (batch_size, C, KV, hd), kv_dt),
+             "kv_pos": empty(lead + (C,))}
         if cfg.cache_quant:
-            c["k_scale"] = zeros((n, batch_size, C, KV, 1), torch.bfloat16)
-            c["v_scale"] = zeros((n, batch_size, C, KV, 1), torch.bfloat16)
+            c["k_scale"] = zeros(lead + (batch_size, C, KV, 1), torch.bfloat16)
+            c["v_scale"] = zeros(lead + (batch_size, C, KV, 1), torch.bfloat16)
         return c
 
-    def ring(lead):
-        W = cfg.window
+    def window(lead):
         return {"k": zeros(lead + (batch_size, W, KV, hd), dt),
                 "v": zeros(lead + (batch_size, W, KV, hd), dt),
                 "kv_pos": empty(lead + (W,))}
 
+    def mamba(lead):
+        return stack_trees([SSM.init_ssm_state(cfg, batch_size, device)
+                            for _ in range(lead[0])])
+
     cache = {"pos": torch.tensor(seq_len, dtype=torch.int32, device=device)}
-    if cfg.attn_pattern == "local_global":
-        G, rem = _groups(cfg)
-        cache.update(local=ring((G, cfg.local_per_global)), full=full(G))
-        if rem:
-            cache["tail"] = ring((rem,))
-    elif cfg.attn_pattern == "swa":
-        cache["win"] = ring((cfg.n_layers,))
-    else:
-        n_mamba = layer_plan(cfg).count("mamba")
-        if n_mamba:
-            cache["ssm"] = stack_trees([SSM.init_ssm_state(cfg, batch_size, device)
-                                        for _ in range(n_mamba)])
-        if n_mamba < cfg.n_layers:
-            cache["full"] = full(cfg.n_layers - n_mamba)
+    for entry, kind, lead in _entries(schedule(cfg)):
+        cache[entry] = {"full": full, "window": window, "mamba": mamba}[kind](lead)
     return cache
 
 
 def decode_step(cfg, params, cache, token):
-    """token: (B,1) int -> (logits (B,1,V), new cache).  Spans
+    """token: (B,1) int -> (logits (B,1,V), new cache): each layer on its
+    slot of its cache entry, then one ``stack_trees`` an entry.  Spans
     ``decode.cache_update`` (each layer's cache write) and
     ``decode.attention`` (its attention over the cache), both in
-    ``block_decode``, and ``decode.stack`` (the ``stack_trees`` calls that
-    rebuild the cache)."""
+    ``block_decode``, and ``decode.stack`` (the stacks that rebuild the
+    cache)."""
     pos = cache["pos"]
     x = _embed(cfg, params, token)
-
-    def run(kinds, layers, caches, h):
-        """Each layer on the next layer of its kind's stacked cache in
-        ``caches`` (``CACHE_KEY``); returns (h, the same keys' new stacks)."""
-        new = {}
-        for lp, kind in zip(layers, kinds):
-            mine = new.setdefault(CACHE_KEY[kind], [])
-            stacked = caches[CACHE_KEY[kind]]
-            h, nc = block_decode(cfg, lp, h, index_tree(stacked, len(mine)), pos, kind)
-            mine.append(nc)
-        with tracing.span("decode.stack"):
-            return h, {key: stack_trees(v) for key, v in new.items()}
-
-    new_cache = {"pos": pos + 1}
-    if cfg.attn_pattern == "local_global":
-        local, full = [], []
-        for g, (lps, gp) in enumerate(zip(params["local_layers"],
-                                          params["global_layers"])):
-            x, nl = run(("window",) * len(lps), lps, {"win": index_tree(cache["local"], g)}, x)
-            x, nf = block_decode(cfg, gp, x, index_tree(cache["full"], g), pos, "full")
-            local.append(nl["win"])
-            full.append(nf)
-        with tracing.span("decode.stack"):
-            new_cache.update(local=stack_trees(local), full=stack_trees(full))
-        if "tail_local" in params:
-            tail = params["tail_local"]
-            x, nt = run(("window",) * len(tail), tail, {"win": cache["tail"]}, x)
-            new_cache["tail"] = nt["win"]
-    else:
-        x, new = run(layer_plan(cfg), params["layers"], cache, x)
-        new_cache.update(new)
+    new_cache, new = {"pos": pos + 1}, {}
+    layers = schedule(cfg)
+    for layer in layers:
+        x, nc = block_decode(cfg, _block(params, layer), x,
+                             index_tree(cache[layer.entry], layer.slot), pos, layer.kind)
+        new.setdefault(layer.entry, []).append(nc)
+    with tracing.span("decode.stack"):
+        for entry, _kind, lead in _entries(layers):
+            new_cache[entry] = _stack(new[entry], lead)
     x = B.apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     logits = B.unembed(params["embed"], x, cfg.logits_scaling)
     return logits, new_cache

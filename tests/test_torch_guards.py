@@ -152,6 +152,30 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path}: {bad}"
 
 
+#: the layers above the kernels and the protocol core, which import them
+UPPER = ("repro_torch.sharding", "repro_torch.models", "repro_torch.serving")
+
+
+def imported_modules(path: Path):
+    """Every module ``path`` imports by absolute name, and for ``from m
+    import n`` also ``m.n`` (n may be a module)."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
+@pytest.mark.parametrize("path", sorted((PORT / "kernels").rglob("*.py"))
+                         + sorted((PORT / "core").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_kernels_and_core_import_nothing_above_them(path):
+    bad = sorted({m for m in imported_modules(path)
+                  if any(m == up or m.startswith(up + ".") for up in UPPER)})
+    assert not bad, f"{path}: {bad}"
+
+
 def ported_text(rel: str) -> str:
     return re.sub(r"\brepro\.", "repro_torch.", (SRC / "repro" / rel).read_text())
 

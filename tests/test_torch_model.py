@@ -5,18 +5,24 @@ and every cache leaf, decode steps, greedy tokens, and the cache's leaf
 paths (the page store's keys).  Tolerance: the reference's model
 cross-check, 3e-5."""
 import dataclasses
+import functools
+import itertools
+import pkgutil
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
 from repro.configs.base import ShapeConfig
 from repro.data import make_batch
 from repro.models import get_model as j_get_model
+from repro_torch import configs as configs_pkg
 from repro_torch.configs import get_config
 from repro_torch.models import get_model
+from repro_torch.models import transformer as TT
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.tree import flatten_with_path
 
@@ -123,3 +129,43 @@ def test_port_init_draws_reference_shapes_and_scales():
                 assert tuple(leaf.shape) == jshapes["layers"][group][name].shape[1:], \
                     (i, group, name)
     assert abs(float(params["embed"]["table"].float().std()) - 0.02) < 1e-3
+
+
+#: every configuration of the port, the transformer's families and the rest
+CONFIGS = sorted(m.name for m in pkgutil.iter_modules(configs_pkg.__path__) if m.name != "base")
+
+
+@pytest.mark.parametrize("scale", ["full", "scaled_down"])
+@pytest.mark.parametrize("arch", CONFIGS)
+def test_layer_schedule_covers_the_tree_and_the_cache(arch, scale):
+    """``transformer.schedule`` lays every layer out once, in forward order,
+    in units of consecutive layers; each layer's block is in ``init``'s tree
+    with its mixer and MLP or MoE, and each cache entry's leading dims are
+    exactly its layers' slots.  Another family's config is refused."""
+    cfg = get_config(arch)
+    cfg = cfg if scale == "full" else cfg.scaled_down()
+    if cfg.family not in TT.FAMILIES:
+        with pytest.raises(ValueError, match="not the transformer's"):
+            TT.schedule(cfg)
+        return
+    layers = TT.schedule(cfg)
+    assert len(layers) == cfg.n_layers and len({l.path for l in layers}) == cfg.n_layers
+    assert tuple(l.kind for l in layers) == TT.layer_plan(cfg)
+    units = [l.unit for l in layers]
+    assert units == sorted(units) and set(units) == set(range(units[-1] + 1))
+
+    params = get_model(cfg, CPU).init_abstract()
+    assert set(params) - {"embed", "final_norm"} == {l.path[0] for l in layers}
+    for layer in layers:
+        block = functools.reduce(lambda node, key: node[key], layer.path, params)
+        assert ("ssm" if layer.kind == "mamba" else "attn") in block, layer
+        assert ("moe" if layer.moe else "mlp") in block, layer
+
+    cache = TT.init_cache(cfg, 1, 8, device="meta")
+    assert set(cache) - {"pos"} == {l.entry for l in layers}
+    for entry in set(cache) - {"pos"}:
+        slots = [l.slot for l in layers if l.entry == entry]
+        assert slots == sorted(slots) and len(set(slots)) == len(slots), entry
+        for path, leaf in flatten_with_path(cache[entry]):
+            lead = tuple(leaf.shape[:len(slots[0])])
+            assert set(slots) == set(itertools.product(*map(range, lead))), (entry, path)

@@ -8,6 +8,7 @@ caches crossing between the packages through the page store, and a
 preempted serving run.  Tolerance: the reference's model cross-check, 3e-5;
 caches and int8 leaves exactly where the reference is exact."""
 import dataclasses
+import hashlib
 
 import jax
 import jax.numpy as jnp
@@ -431,3 +432,50 @@ def test_vlm_and_local_global_serve_through_the_launcher():
         out = tserve.serve(arch, batch=1, prompt_len=8, tokens=3,
                            snapshot_every=1, crash_at=1, device="cpu")
         assert out.shape == (1, 3)
+
+
+#: the layouts ``test_torch_hybrid_moe.DEFAULT_DIGESTS`` lacks, scaled
+#: down: local_global with its tail, swa with MoE and hybrid_moe with each
+#: mixer twice, windows of 16 so that the 20-token prompt wraps the rings
+LAYOUTS = {"local_global": ("gemma3_27b", dict(n_layers=8, window=16)),
+           "swa_moe": ("mixtral_8x22b", dict(window=16)),
+           "hybrid_moe": ("granite_h_small", dict(
+               n_layers=4, layer_types=("mamba", "attention", "mamba", "attention")))}
+#: sha256 (first 16 hex digits) of the seeded parameters, the prefill
+#: logits, three decode steps' logits, the last cache's paths and leaves
+#: and the train loss, one thread, recorded on the tree before the layer
+#: schedule (``transformer.schedule``) replaced the per-pattern branches
+LAYOUT_DIGESTS = {("local_global", "bfloat16"): "e5107a0093a77bab",
+                  ("local_global", "float32"): "b2790edbe748e7a4",
+                  ("swa_moe", "bfloat16"): "c12ad1ed38e29835",
+                  ("swa_moe", "float32"): "35233ab0a01e5862",
+                  ("hybrid_moe", "bfloat16"): "1bb2251a7192564b",
+                  ("hybrid_moe", "float32"): "d6ff27b9041056af"}
+
+
+@pytest.mark.parametrize("layout,dtype", sorted(LAYOUT_DIGESTS))
+def test_layouts_keep_their_numbers_bit_for_bit(layout, dtype):
+    arch, kw = LAYOUTS[layout]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cfg = dataclasses.replace(get_config(arch).scaled_down(), dtype=dtype, **kw)
+        model = get_model(cfg, CPU)
+        params = model.init(0)
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 24)).astype(np.int32))
+        h = hashlib.sha256()
+        for path, leaf in flatten_with_path(params):
+            h.update(path.encode() + leaf.float().numpy().tobytes())
+        with torch.inference_mode():
+            logits, cache = model.prefill(params, {"tokens": toks[:, :20]})
+            h.update(logits.float().numpy().tobytes())
+            for i in range(20, 23):
+                logits, cache = model.decode_step(params, cache, toks[:, i:i + 1])
+                h.update(logits.float().numpy().tobytes())
+        for path, leaf in flatten_with_path(cache):
+            h.update(path.encode() + str(leaf.dtype).encode() + leaf.float().numpy().tobytes())
+        h.update(model.train_loss(params, {"tokens": toks}).detach().float().numpy().tobytes())
+    finally:
+        torch.set_num_threads(threads)
+    assert h.hexdigest()[:16] == LAYOUT_DIGESTS[layout, dtype]

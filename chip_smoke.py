@@ -23,6 +23,11 @@ Phases, each printing one JSON line and raising on any mismatch:
               each benchmark cell's decode shape (olmo_1b chat and preempt,
               granite_moe_3b long_prompt, granite_h_small rag_8k), every slot
               valid, with kernel / plain / SDPA times and the bound;
+  moe_kernels  the MoE layer's three kernels (queue positions, dispatch,
+              combine) against its plain PyTorch versions at both MoE cells'
+              prefill and decode shapes (granite_moe_3b long_prompt,
+              granite_h_small rag_8k; routed by a random router), with
+              kernel / plain times and each kernel's byte bound;
   kv_pages    the KV page store at olmo_1b decode-cache widths: snapshot,
               restore, a torn snapshot, failover — every restore bit-exact;
   checkpoint  the checkpoint manager on an olmo_1b-width bf16 state: save,
@@ -378,6 +383,14 @@ DECODE_SHAPES = [((32, 640, 16, 1, 128), "bfloat16", None),
                  ((2, 8320, 8, 4, 128), "bfloat16", 0.0078125),
                  ((2, 384, 16, 1, 128), "bfloat16", None),
                  ((32, 640, 16, 1, 128), "float32", None)]
+#: MoE layer shapes: (B, S, d, E, k) of each MoE cell's prefill and decode
+#: step (granite_moe_3b.long_prompt: 4 x 3840, d 1536, 40 experts top-8;
+#: granite_h_small.rag_8k: 2 x 8192, d 4096, 72 top-10), in bf16, in groups
+#: of granite's 256 with capacity factor 1.25
+MOE_SHAPES = [(4, 3840, 1536, 40, 8), (4, 1, 1536, 40, 8),
+              (2, 8192, 4096, 72, 10), (2, 1, 4096, 72, 10)]
+#: the MoE layer's kernels, by their ``ops.COUNTS`` keys
+MOE_KERNELS = ("moe_positions", "moe_dispatch", "moe_combine")
 #: (rtol, atol) of |kernel - plain in float32| <= atol + rtol * |plain|, by
 #: dtype (the card tests'): a bf16 output's rounding, at most 2^-8 of the
 #: value, with float32 sums reassociated; a float32 output's sums over up
@@ -586,6 +599,23 @@ def decode_bound_ms(b: int, c: int, kv: int, g: int, hd: int, dtype: str) -> tup
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def moe_bound_ms(groups: int, g: int, k: int, E: int, C: int, row_bytes: int,
+                 kept: int, kept_tokens: int) -> dict:
+    """The least time (ms) the card could take for each MoE kernel at one
+    layer's routing, bytes over HBM (none does arithmetic to speak of):
+    positions read topi (8 B a pair) and write pos, keep and slot (13 B a
+    pair) and the inverse (4 B a slot); dispatch writes every capacity row
+    and reads the inverse and each token with a kept pair once; combine
+    reads each kept pair's expert row, slot and gate (8 B a pair) once and
+    writes every token's row."""
+    pairs, slots, tokens = groups * g * k, groups * E * C, groups * g
+    return {"moe_positions": (21 * pairs + 4 * slots) / HBM_BYTES_PER_S * 1e3,
+            "moe_dispatch": (slots * (row_bytes + 4) + kept_tokens * row_bytes)
+            / HBM_BYTES_PER_S * 1e3,
+            "moe_combine": (kept * row_bytes + 8 * pairs + tokens * row_bytes)
+            / HBM_BYTES_PER_S * 1e3}
+
+
 # ---------------------------------------------------------------- phases
 def phase_device() -> dict:
     import torch
@@ -749,6 +779,77 @@ def run_decode_attention(dev, shapes=DECODE_SHAPES) -> list:
     """One ``decode_case`` per shape; launches here are not the main path's."""
     return [decode_case(shape, dtype, seed=i, dev=dev, scale=scale)
             for i, (shape, dtype, scale) in enumerate(shapes)]
+
+
+def moe_case(shape, seed: int, dev) -> dict:
+    """The MoE layer's kernels (``ops.moe_*``) against its plain versions
+    at one (B, S, d, E, k) in bf16, routed by a random float32 router:
+    positions and dispatch equal bit for bit, combine (over random expert
+    outputs) within one bf16 rounding of the float32 sum (``DECODE_TOL``'s
+    bf16 row); on the card also each kernel's and plain version's device
+    time and the kernels' byte bounds (``moe_bound_ms``).  Off the card only
+    the plain versions run (the wrappers refuse a CPU tensor)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import moe as M
+    b, s, d, e, k = shape
+    cfg = dataclasses.replace(get_config("granite_moe_3b"), d_model=d, n_experts=e,
+                              n_experts_active=k)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = {"router": torch.randn((d, e), generator=gen, device=dev) / d ** 0.5}
+    x = torch.randn((b, s, d), generator=gen, device=dev).to(torch.bfloat16)
+    card = dev.type == "cuda"
+    with torch.inference_mode():
+        r = M.route(params, x, cfg, card)
+        pos = M.queue_positions(r.topi, e)
+        plain_r = M.Routing(r.g, r.C, r.topi, r.topv, pos, pos < r.C)
+        xe, slot = M.dispatch(plain_r, x, e)
+        ye = torch.randn(xe.shape, generator=gen, device=dev).to(x.dtype)
+        want = M.combine(plain_r, ye, slot, x.dtype)
+        groups, g, C = b * (s // r.g), r.g, r.C
+        kept = int(plain_r.keep.sum())
+        out = {"shape": list(shape), "dtype": "bfloat16", "groups": groups, "g": g, "C": C,
+               "pairs": plain_r.keep.numel(), "kept": kept,
+               "kept_tokens": int(plain_r.keep.any(-1).sum()),
+               "bound_ms": moe_bound_ms(groups, g, k, e, C, d * 2, kept,
+                                        int(plain_r.keep.any(-1).sum())),
+               "ms": None, "plain_ms": None, "of_bound": None}
+        if not card:
+            return out
+        check(torch.equal(r.pos, pos) and torch.equal(r.keep, plain_r.keep),
+              f"moe_positions != plain at {shape}")
+        check(torch.equal(ops.moe_dispatch(x, r.inverse, e, k), xe),
+              f"moe_dispatch != plain at {shape}")
+        got = ops.moe_combine(ye, r.slot, r.topv)
+        rtol, atol = DECODE_TOL["bfloat16"]
+        w = torch.where(plain_r.keep, r.topv.to(x.dtype).float(), 0)
+        idx = torch.where(plain_r.keep, r.topi * C + pos, 0).reshape(b, s // g, g * k, 1)
+        ye32 = ye.float().reshape(e, b, s // g, C, d).permute(1, 2, 0, 3, 4).reshape(
+            b, s // g, e * C, d)
+        want32 = (w.unsqueeze(-1) * torch.gather(ye32, 2, idx.expand(-1, -1, -1, d)).reshape(
+            b, s // g, g, k, d)).sum(3).reshape(b, s, d)
+        of_tol = float(((got.float() - want32).abs() / (atol + rtol * want32.abs())).max())
+        check(of_tol <= 1.0, f"moe_combine != float32 sum at {shape}: {of_tol:.3f} of tol")
+        out["of_tol"] = of_tol
+        out["max_abs_diff_plain"] = float((got.float() - want.float()).abs().max())
+        topi = r.topi.contiguous()
+        runs = {"moe_positions": (lambda: ops.moe_positions(topi, e, C),
+                                  lambda: M.queue_positions(r.topi, e)),
+                "moe_dispatch": (lambda: ops.moe_dispatch(x, r.inverse, e, k),
+                                 lambda: M.dispatch(plain_r, x, e)),
+                "moe_combine": (lambda: ops.moe_combine(ye, r.slot, r.topv),
+                                lambda: M.combine(plain_r, ye, slot, x.dtype))}
+        out["ms"] = {name: profiled_ms(kernel, 20) for name, (kernel, _) in runs.items()}
+        out["plain_ms"] = {name: profiled_ms(plain, 5) for name, (_, plain) in runs.items()}
+        out["of_bound"] = {name: out["bound_ms"][name] / out["ms"][name] for name in runs}
+    return out
+
+
+def run_moe_kernels(dev, shapes=MOE_SHAPES) -> list:
+    """One ``moe_case`` per shape; launches here are not the main path's."""
+    return [moe_case(shape, seed=i, dev=dev) for i, shape in enumerate(shapes)]
 
 
 def make_kv_cache(shape, seed: int, dev):
@@ -986,8 +1087,8 @@ class RoutingLog:
         from repro_torch.models.layers import moe as M
         self._route = route = M.route
 
-        def logged(params, x, cfg):
-            r = route(params, x, cfg)
+        def logged(params, x, cfg, card=False):
+            r = route(params, x, cfg, card)
             xg = x.reshape(*r.topi.shape[:3], x.shape[-1]).float()
             gates = torch.softmax(xg.detach() @ params["router"].detach(), dim=-1)
             own = (r.topi.cpu(), r.pos.cpu(), r.keep.cpu(), gates.cpu())
@@ -1001,6 +1102,7 @@ class RoutingLog:
             if flip is None:
                 return r
             self.flips.append(check_flip(dict(flip, call=i), "routing"))
+            check(not card, "a replayed routing takes the plain path (the CPU run's)")
             topi, pos, keep = (t.to(x.device) for t in self.replay[i][:3])
             topv = torch.softmax(xg @ params["router"], dim=-1).gather(-1, topi)
             topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
@@ -1133,15 +1235,17 @@ def run_model_check(dev, *, arch: str = "olmo_1b", overrides=None, batch: int = 
 
 def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
               tokens: int = 16, snapshot_every: int = 8, crash_at: int = 10,
-              seed: int = 0, flash_per_prefill=None, probe=None) -> dict:
+              seed: int = 0, flash_per_prefill=None, probe=None,
+              moe_layers: int = 0) -> dict:
     """The serving engine at ``cfg`` (default: olmo_1b at its full config):
     a clean run, then a run preempted after ``crash_at`` decode steps that
     restores its cache from the page store; each engine has its own page
     store (``launch.serve.page_store_for``).  The tokens must be equal, and
     on the card the prefill must have launched the flash kernel — exactly
     ``flash_per_prefill`` ({launch key: count}) a prefill where given — and
-    the restore the CRC kernel, and the peak device memory must stay under
-    ``PEAK_BYTES_LIMIT``.  ``probe(model, params, prompts)``, run
+    the restore the CRC kernel, each MoE kernel must have launched once a
+    MoE layer (``moe_layers`` of them) a prefill and a decode step, and the
+    peak device memory must stay under ``PEAK_BYTES_LIMIT``.  ``probe(model, params, prompts)``, run
     before the main path, adds its dict to the result under "probe"."""
     import numpy as np
     import torch
@@ -1223,6 +1327,13 @@ def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
         want = {k: n * prefills for k, n in flash_per_prefill.items()}
         check(dict(flash.shapes) == want,
               f"flash launches {dict(flash.shapes)} over {prefills} prefills, want {want}")
+    steps = len(times["clean"]["decode_ms"]) + len(times["preempted"]["decode_ms"])
+    moe = {name: ops.COUNTS[name] for name in MOE_KERNELS}
+    if cuda:
+        want = moe_layers * (prefills + steps)
+        check(all(c.launches == want for c in moe.values()),
+              f"MoE launches {[c.launches for c in moe.values()]} over {prefills} prefills "
+              f"and {steps} decode steps of {moe_layers} MoE layers, want {want} each")
     peak = torch.cuda.max_memory_allocated(dev) if cuda else None
     check(peak is None or peak < PEAK_BYTES_LIMIT,
           f"peak device memory {peak} B, not under {PEAK_BYTES_LIMIT}")
@@ -1233,6 +1344,7 @@ def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
            "snapshot_every": snapshot_every, "crash_at": crash_at,
            "largest_cache_leaf_bytes": leaf_bytes, "largest_cache_leaf": leaf_path,
            "page_store": geometry, "tokens_equal": True, "prefills": prefills,
+           "decode_steps": steps, "moe_layers": moe_layers,
            "first_tokens": clean[0].tolist(), "profiled": busy, "probe": probed,
            "max_memory_allocated": peak}
     for run, t in times.items():
@@ -1242,7 +1354,7 @@ def run_serve(dev, *, cfg=None, batch: int = 4, prompt_len: int = 256,
                     "snapshot_ms": mean(t["snapshot_ms"]),
                     "snapshots": len(t["snapshot_ms"]),
                     "restore_ms": t["restore_ms"][0] if t["restore_ms"] else None}
-    for name, count in (("flash_attention", flash), ("crc32_batch", crc)):
+    for name, count in (("flash_attention", flash), ("crc32_batch", crc), *moe.items()):
         out[name] = {"launches": count.launches,
                      "shapes": {str(k): v for k, v in count.shapes.items()}}
     out["flash_attention"]["by_route"] = routes
@@ -1345,11 +1457,15 @@ def run_serve_granite_moe(dev, *, cfg=None, batch: int = 4, prompt_len: int = 10
     """granite_moe_3b's full config (default), ``batch`` x ``prompt_len``
     tokens: on the card each prefill must launch the flash kernel exactly
     ``GRANITE_PREFILL_FLASH`` and the restore's widest CRC row is the crc32
-    phase's ``GRANITE_RESTORE_CRC`` width; the probe counts the pairs a
+    phase's ``GRANITE_RESTORE_CRC`` width; each MoE kernel launches once a
+    layer a prefill and a decode step; the probe counts the pairs a
     prefill's capacity drops."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    moe_layers = sum(layer.moe for layer in T.schedule(cfg or get_config("granite_moe_3b")))
     return run_serve_full(dev, "granite_moe_3b", cfg=cfg, batch=batch,
                           prompt_len=prompt_len, flash_per_prefill=GRANITE_PREFILL_FLASH,
-                          probe=moe_prefill_drops,
+                          probe=moe_prefill_drops, moe_layers=moe_layers,
                           restore_crc_words=GRANITE_RESTORE_CRC[1], **kwargs)
 
 
@@ -1879,6 +1995,10 @@ def run_train_families(dev, *, configs=None, steps: int = TRAIN_FAMILY_STEPS,
                                      ckpt_at=ckpt_at if name == ckpt else None,
                                      reduced=reduced)
         out[name]["wall_s"] = time.perf_counter() - t0
+        # training wants gradients, which the MoE kernels do not give
+        out[name]["moe_launches"] = {n: ops.COUNTS[n].launches for n in MOE_KERNELS}
+        check(not any(out[name]["moe_launches"].values()),
+              f"training {name} launched MoE kernels: {out[name]['moe_launches']}")
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -2378,6 +2498,44 @@ def decode_entry(dev, launches: int, shapes: dict) -> dict:
                                     "call_ms")}}
 
 
+#: what the MoE kernels stand in for in the JAX package (no Pallas kernel)
+MOE_REPLACES = {"moe_positions": "none: src/repro/models/layers/moe.py:61 is a one-hot cumsum",
+                "moe_dispatch": "none: src/repro/models/layers/moe.py:71 is a one-hot einsum",
+                "moe_combine": "none: src/repro/models/layers/moe.py:76 is a one-hot einsum"}
+
+
+def moe_entries(dev, launches: dict, shapes: dict) -> list:
+    """One entry a MoE kernel at the main paths' widest dispatch (the most
+    token elements: groups x g x d), routed by a random router
+    (``moe_case``), beside its plain version and its byte bound;
+    ``launches`` and ``shapes`` the main paths' by kernel name, each
+    launch key (groups, g, k, E, C), dispatch's and combine's with (d,
+    dtype)."""
+    groups, g, k, e, c, d, dtype = max(shapes["moe_dispatch"],
+                                       key=lambda key: key[0] * key[1] * key[5])
+    case = moe_case((groups, g, d, e, k), seed=7, dev=dev)
+    check(dtype == case["dtype"] and c == case["C"],
+          f"moe_case at {(groups, g, d, e, k)} gives C {case['C']} {case['dtype']}, the "
+          f"main path {c} {dtype}")
+    entries = []
+    for name in MOE_KERNELS:
+        timed = lambda field: case[field][name] if case[field] else None
+        entries.append({
+            "name": name, "route": "cuda", "source": "src/repro_torch/kernels/csrc/moe.cu",
+            "replaces": MOE_REPLACES[name], "launches": launches[name],
+            "matches_plain": True,
+            "shapes": {str(list(key)): n
+                       for key, n in sorted(shapes[name].items(), key=lambda kv: -kv[1])},
+            "shape": case["shape"], "dtype": dtype, "groups": groups, "g": g, "C": c,
+            "kept": case["kept"], "pairs": case["pairs"],
+            "max_abs_err": case.get("max_abs_diff_plain") if name == "moe_combine" else 0,
+            "of_tol": case.get("of_tol") if name == "moe_combine" else None,
+            "ms": timed("ms"), "plain_ms": timed("plain_ms"),
+            "bound_ms": case["bound_ms"][name], "bound_by": "bytes",
+            "of_bound": timed("of_bound"), "library_ms": None})
+    return entries
+
+
 def verify_round_trip(n: int, w: int, dev, reps: int = 200) -> dict:
     """Host ms of one ``layout.verify_records`` call on ``n`` records whose
     rows are ``w`` words (values of 4w - 20 B): what a read pays for its
@@ -2452,7 +2610,8 @@ def crc_entry(dev, launches: int, shapes: dict, also=(), also_shapes=None,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="device,crc32,flash_attention,decode_attention,kv_pages,"
+    ap.add_argument("--phases", default="device,crc32,flash_attention,decode_attention,"
+                    "moe_kernels,kv_pages,"
                     "checkpoint,ycsb,serve_at_load,serve,serve_gemma3,serve_granite_moe,"
                     "serve_gemma3_12b,serve_rwkv6,serve_zamba2,serve_whisper,"
                     "serve_pixtral,train_families,examples,train,dryrun,kernels")
@@ -2479,6 +2638,9 @@ def main(argv=None) -> int:
     if "decode_attention" in phases:
         for case in run_decode_attention(dev):
             emit("decode_attention", card=info["nvidia_smi"], **case)
+    if "moe_kernels" in phases:
+        for case in run_moe_kernels(dev):
+            emit("moe_kernels", card=info["nvidia_smi"], **case)
     if "trace_check" in phases:  # not a default phase
         emit("trace_check", **uncounted(lambda: run_trace_check(dev)))
     # each main-path phase resets the counts where its path starts; these sum
@@ -2559,6 +2721,8 @@ def main(argv=None) -> int:
         if shapes["decode_attention"]:
             entries.append(decode_entry(dev, launches["decode_attention"],
                                         shapes["decode_attention"]))
+        if shapes["moe_dispatch"]:
+            entries += moe_entries(dev, launches, shapes)
         print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),

@@ -4,7 +4,15 @@ A wrapper runs the kernel's plain version only for a tensor that lies on the
 CPU; for a CUDA tensor it launches the kernel or raises.  ``decode_attention``
 takes CUDA tensors alone: its plain version is the model layer's
 (``models.layers.attention.decode_attention``), and its callers pick one of
-the two by device (``models.transformer.decode_attention``).
+the two by device (``models.transformer.decode_attention``).  So do the MoE
+layer's three, whose plain versions are ``models.layers.moe``'s
+``queue_positions``, ``dispatch`` and ``combine`` (``apply_moe`` picks):
+
+- ``moe_positions`` (count ``"moe_positions"``): each (token, expert)
+  pair's queue position, keep, capacity slot, and each slot's pair;
+- ``moe_dispatch`` (``"moe_dispatch"``): the experts' (E, B·n·C, d) input;
+- ``moe_combine`` (``"moe_combine"``): each token's gated sum of its kept
+  pairs' expert outputs.
 """
 from __future__ import annotations
 
@@ -16,11 +24,15 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.kernels import build, crc32, decode_attention as decode, ref
 from repro_torch.kernels import flash_attention as flash
+from repro_torch.kernels import moe
 
 #: wrapper name -> its kernel's launch count
 COUNTS: Dict[str, build.LaunchCount] = {"crc32_batch": crc32.COUNT,
                                         "flash_attention": flash.COUNT,
-                                        "decode_attention": decode.COUNT}
+                                        "decode_attention": decode.COUNT,
+                                        "moe_positions": moe.POSITIONS,
+                                        "moe_dispatch": moe.DISPATCH,
+                                        "moe_combine": moe.COMBINE}
 
 
 def reset_counts() -> None:
@@ -92,3 +104,27 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     return decode.decode_attention_cuda(q, k_cache, v_cache, kv_positions, pos,
                                         window=window, scale=scale)
+
+
+def moe_positions(topi: torch.Tensor, n_experts: int, capacity: int):
+    """(pos, keep, slot, inverse) of the routed pairs ``topi`` (B, n, g, k)
+    on the card: ``pos`` and ``keep`` as ``models.layers.moe.route``'s,
+    ``slot`` each pair's e·C + pos (-1 dropped), ``inverse`` (B, n, E·C) the
+    pair t·k + j that fills each slot of its group (-1 none)."""
+    return moe.positions_cuda(topi, n_experts, capacity)
+
+
+def moe_dispatch(x: torch.Tensor, inverse: torch.Tensor, n_experts: int,
+                 k: int) -> torch.Tensor:
+    """The experts' input (E, B·n·C, d) from x (B, S, d) and
+    ``moe_positions``' inverse, on the card; equal to the plain
+    ``models.layers.moe.dispatch``'s bit for bit."""
+    return moe.dispatch_cuda(x, inverse, n_experts, k)
+
+
+def moe_combine(ye: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+    """(B, S, d): each token's kept pairs' rows of the experts' output ye
+    (E, B·n·C, d), weighed by their float32 gates cast to ye's dtype and
+    summed in float32, on the card (the plain ``models.layers.moe.combine``
+    up to the order of that sum)."""
+    return moe.combine_cuda(ye, slot, gates)

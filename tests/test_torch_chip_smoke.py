@@ -80,6 +80,43 @@ def test_decode_attention_phase_on_cpu():
     assert all(c["ms"] is None for c in out)  # no device times off the card
 
 
+def test_moe_kernels_phase_on_cpu():
+    """Off the card the phase routes and runs the plain versions only: the
+    pairs and drops it counts, the bounds from them, no device times."""
+    out = chip_smoke.run_moe_kernels(torch.device("cpu"),
+                                     shapes=[(2, 512, 32, 8, 2), (2, 1, 32, 8, 2)])
+    prefill, decode = out
+    assert (prefill["groups"], prefill["g"], prefill["C"]) == (4, 256, 80)
+    assert prefill["pairs"] == 2 * 512 * 2 and 0 < prefill["kept"] <= prefill["pairs"]
+    assert (decode["groups"], decode["g"], decode["C"], decode["kept"]) == (2, 1, 1, 4)
+    assert all(c["ms"] is None and c["plain_ms"] is None for c in out)
+    bound = chip_smoke.moe_bound_ms(2, 1, 2, 8, 1, 64, 4, 2)
+    assert bound["moe_dispatch"] == pytest.approx((16 * 68 + 2 * 64) / 3.35e12 * 1e3)
+    assert chip_smoke.MOE_SHAPES[0] == (4, 3840, 1536, 40, 8)
+
+
+def test_moe_entries_on_cpu():
+    """The kernels line's MoE entries: one a kernel at the widest dispatch
+    of the main paths (a prefill's, not a decode step's), with their
+    launches by shape; off the card no device times."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import moe as M
+    C = M.capacity(get_config("granite_moe_3b"), 16)
+    shapes = {"moe_positions": {(4, 16, 8, 40, C): 2, (4, 1, 8, 40, 1): 6},
+              "moe_dispatch": {(4, 16, 8, 40, C, 64, "bfloat16"): 2,
+                               (4, 1, 8, 40, 1, 64, "bfloat16"): 6}}
+    shapes["moe_combine"] = dict(shapes["moe_dispatch"])
+    out = chip_smoke.moe_entries(torch.device("cpu"), dict.fromkeys(shapes, 8), shapes)
+    assert [e["name"] for e in out] == list(chip_smoke.MOE_KERNELS)
+    for entry in out:
+        assert entry["shape"] == [4, 16, 64, 40, 8] and (entry["g"], entry["C"]) == (16, C)
+        assert entry["launches"] == 8 and list(entry["shapes"].values()) == [6, 2]
+        assert entry["ms"] is None and entry["bound_by"] == "bytes" and entry["bound_ms"] > 0
+        assert {"name", "route", "source", "replaces", "launches", "max_abs_err",
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(entry)
+        assert (ROOT / entry["source"]).exists()
+
+
 def test_decode_bound_at_the_chat_shape_is_bytes():
     """olmo_1b.chat's step: 168 MB of bf16 K and V a layer, ~50 us."""
     ms, by = chip_smoke.decode_bound_ms(32, 640, 16, 1, 128, "bfloat16")
@@ -282,6 +319,9 @@ def test_serve_granite_moe_phase_on_cpu():
     assert probe["calls"] == 4 and probe["group"] == 16 and probe["capacity"] == 12
     assert probe["pairs"] == 4 * 2 * 32 * 8 and 0 <= probe["dropped"] < probe["pairs"]
     assert out["flash_attention"]["launches"] == 0  # the CPU runs the plain version
+    # one routing a MoE layer a prefill; the CPU launches no MoE kernel
+    assert out["moe_layers"] == probe["calls"] and out["decode_steps"] > 0
+    assert all(out[name]["launches"] == 0 for name in chip_smoke.MOE_KERNELS)
 
 
 def test_serve_gemma3_12b_phase_on_cpu():
@@ -820,6 +860,7 @@ def test_train_families_phase_on_cpu():
         assert r["reduced"]["n_layers"][1] == r["layers"] or r["reduced"]["n_layers"][0] == \
             r["layers"]
         assert (r["resume"] is not None) == (name == chip_smoke.TRAIN_FAMILY_CKPT)
+        assert r["moe_launches"] == dict.fromkeys(chip_smoke.MOE_KERNELS, 0), name
     w = out["whisper_small"]
     assert w["tokens_per_step"] == 2 * (16 + 32)  # 32 stub frames a row
     res = w["resume"]
